@@ -79,9 +79,11 @@ def step_times(P, g, src):
     return wall, levels, dict(per)
 
 
-def kernel_profile(P, g, src, out_dir, scale):
-    """One BFS under torch.profiler; device time by kernel name. The
-    Chrome trace goes to ``out_dir`` (a temporary file when None)."""
+def device_profile(fn, trace: str | None, match=()) -> dict:
+    """fn() under torch.profiler: wall, device busy and idle share, and
+    device time by kernel name (``match_ms``: the kernels whose names
+    hold one of ``match``). The Chrome trace is written to ``trace`` (a
+    temporary file when None)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -89,15 +91,15 @@ def kernel_profile(P, g, src, out_dir, scale):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        P.frontier_bfs_hybrid(g, src, return_device=True)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     with tempfile.TemporaryDirectory() as tmp:
-        if out_dir:
-            os.makedirs(out_dir, exist_ok=True)
-        trace = os.path.join(out_dir or tmp, f"bfs_s{scale}_trace.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
+        if trace:
+            os.makedirs(os.path.dirname(trace), exist_ok=True)
+        path = trace or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
             events = json.load(f)["traceEvents"]
     by_name = collections.Counter()
     calls = collections.Counter()
@@ -106,11 +108,11 @@ def kernel_profile(P, g, src, out_dir, scale):
             by_name[e["name"]] += e.get("dur", 0)
             calls[e["name"]] += 1
     busy = sum(by_name.values())
-    rounds = sum(us for name, us in by_name.items()
-                 if any(k in name for k in ROUND_KERNELS))
+    matched = sum(us for name, us in by_name.items()
+                  if any(k in name for k in match))
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1 - busy / wall_us,
-            "frontier_round_ms": rounds / 1e3,
+            "match_ms": matched / 1e3,
             "top": [{"name": n[:160], "ms": us / 1e3, "calls": calls[n]}
                     for n, us in by_name.most_common(25)]}
 
@@ -142,7 +144,10 @@ def main() -> int:
               + ", ".join(f"{k} {v[0]:.3f} ms/{v[1]}x"
                           for k, v in sorted(per.items(),
                                              key=lambda kv: -kv[1][0])))
-    prof = kernel_profile(P, g, srcs[0], args.out, SCALE)
+    prof = device_profile(
+        lambda: P.frontier_bfs_hybrid(g, srcs[0], return_device=True),
+        args.out and os.path.join(args.out, f"bfs_s{SCALE}_trace.json"),
+        ROUND_KERNELS)
     if args.out:
         with open(os.path.join(args.out,
                                f"bfs_s{SCALE}_breakdown.json"), "w") as f:
@@ -153,7 +158,7 @@ def main() -> int:
           f"{prof['wall_ms']:.3f} ms under the profiler, device busy "
           f"{prof['device_busy_ms']:.3f} ms (idle share "
           f"{prof['device_idle_share']:.3f}), frontier_round "
-          f"{prof['frontier_round_ms']:.3f} ms")
+          f"{prof['match_ms']:.3f} ms")
     for row in prof["top"]:
         print(f"  {row['ms']:10.3f} ms {row['calls']:6d}x  {row['name']}")
     return 0

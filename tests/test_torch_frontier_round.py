@@ -16,6 +16,7 @@ import titan_tpu_torch.models.bfs_hybrid as PH
 from titan_tpu.olap.tpu import snapshot as snap_mod
 from titan_tpu.ops.pallas_frontier import \
     ladder_fetch_counts as jax_ladder_fetch_counts
+from titan_tpu_torch import build
 from titan_tpu_torch.ops import frontier as F
 
 
@@ -134,4 +135,4 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        F._nvcc()
+        build.nvcc()

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of titan_tpu_torch, and not
-chip_smoke.py, imports jax or anything of the JAX package titan_tpu."""
+"""The port stands alone: no module of titan_tpu_torch, and neither
+chip_smoke.py nor the port's scripts (scripts/torch_*.py), imports jax or
+anything of the JAX package titan_tpu."""
 
 import ast
 import pathlib
@@ -11,7 +12,7 @@ from titan_tpu_torch.device import next_pow2, resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FILES = sorted((ROOT / "titan_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def _forbidden(name: str) -> bool:
@@ -25,6 +26,12 @@ def _imports(path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+
+
+def test_the_port_scripts_are_scanned():
+    names = {p.name for p in FILES}
+    assert {"torch_bfs_breakdown.py", "torch_engine_breakdown.py",
+            "seg_scan.py", "engine.py"} <= names
 
 
 def test_guard_sees_the_prefix_correctly():

@@ -11,7 +11,14 @@ from __future__ import annotations
 
 import hashlib
 import os
+import shutil
 import subprocess
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+#: where the CUDA kernels of ``csrc/`` are built (listed in .gitignore)
+CUDA_BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def build_shared(src: str, cmd: list[str], build_dir: str, name: str,
@@ -40,3 +47,21 @@ def build_shared(src: str, cmd: list[str], build_dir: str, name: str,
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc`` (default
+    ``/usr/local/cuda``), else the one on ``PATH``; raises if neither."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (CUDA_HOME or PATH): the CUDA "
+                       "kernels cannot be built")
+
+
+def build_cuda(name: str) -> str:
+    """Build ``csrc/<name>.cu`` for sm_90a into a C-interface library
+    under ``_build/``; returns its path."""
+    return build_shared(os.path.join(_PKG, "csrc", f"{name}.cu"),
+                        [nvcc()] + NVCC_FLAGS, CUDA_BUILD_DIR, name)

@@ -20,37 +20,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
 
 import numpy as np
 import torch
 
-from titan_tpu_torch.build import build_shared
+from titan_tpu_torch.build import build_cuda
 from titan_tpu_torch.ops.compaction import scatter_compact
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL_SRC = os.path.join(_PKG, "csrc", "frontier_round.cu")
-KERNEL_BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (CUDA_HOME or PATH): the "
-                       "frontier_round kernel cannot be built")
 
 
 @functools.cache
 def kernel_library() -> ctypes.CDLL:
     """Build (once per source hash) and bind the kernel library."""
-    path = build_shared(KERNEL_SRC, [_nvcc()] + NVCC_FLAGS,
-                        KERNEL_BUILD_DIR, "frontier_round")
-    lib = ctypes.CDLL(path)
+    lib = ctypes.CDLL(build_cuda("frontier_round"))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.tt_frontier_round.restype = i32
     lib.tt_frontier_round.argtypes = (

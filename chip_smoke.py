@@ -8,7 +8,8 @@ Phases, each of which raises on failure:
 1. print the card's name and power limit; build the kernels from the
    sources in the checkout (``nvcc`` for ``csrc/frontier_round.cu`` and
    ``csrc/seg_scan.cu``, ``g++`` for the native Graph500 library), all
-   at once; start the host builds of the two Graph500 graphs (scale 22,
+   at once, and print each kernel's ptxas registers, shared memory and
+   spills; start the host builds of the two Graph500 graphs (scale 22,
    then scale 26) in the background;
 2. hold the ``frontier_round`` CUDA kernel bit-equal to its plain PyTorch
    version on the card: K in {1, 3}, lanes in {2, 8}, tbits absent and
@@ -19,8 +20,12 @@ Phases, each of which raises on failure:
    the card, for every combine (sum, min, max) and type (float32,
    int32): E in {1, 70, a tile - 1, a tile, a tile + 1, 2^20,
    3*2^22 + 4099} with random segment starts, one segment spanning every
-   tile (a pure carry chain), every element its own segment, and
-   ``flags[0]`` False. Exact except float32 sums (``FLOAT_SUM_RTOL``);
+   tile (a pure carry chain, far more tiles than are resident at once),
+   hub-like segments spanning 2-300 tiles among short ones, every element
+   its own segment, and ``flags[0]`` False. Exact except float32 sums
+   (``FLOAT_SUM_RTOL``). Then ``REPEATS`` back-to-back float32 sums of
+   the one-segment and the hub inputs, each run bit-equal to the first
+   (stale statuses and look-back races would show here);
 4. at Graph500 scale 16, the port's BFS on the card equals the port's
    BFS on the CPU (plain path), and ``frontier_round`` was launched;
 5. the vertex-program engine's main path at Graph500 scale 22, edge
@@ -32,7 +37,9 @@ Phases, each of which raises on failure:
    to scipy's components (each label the smallest id of its component).
    Then one PageRank superstep's message array is replayed: the kernel
    against its plain version, its byte bound and
-   ``torch.segment_reduce``, and the superstep's parts are timed;
+   ``torch.segment_reduce``, beside an int32 ``min`` at the same flags
+   and a plain ``copy_`` of the messages; and the superstep's parts are
+   timed;
 6. the BFS main path at the full scale: native R-MAT host build, upload,
    direction-optimizing BFS from sources sampled by bench.py's rule (one
    warm-up run, best of 3 per source), TEPS as bench.py computes it, and
@@ -48,6 +55,7 @@ script exits 1 and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -72,11 +80,21 @@ SEG_KERNEL = {"name": "seg_scan", "route": "cuda",
               "replaces": "titan_tpu/ops/pallas_segment.py:41"}
 #: float32 sums: |kernel - plain| <= FLOAT_SUM_RTOL * (the scan of |x|).
 #: The kernel adds in tile order (16 in a thread, a warp tree, a block
-#: tree, the carry chain) and the plain version in Hillis-Steele order;
-#: each order's error is at most its depth (under 80 adds here) times
-#: float32's 2^-24 times the scan of |x|, so the two differ by under
-#: 1e-5 of it.
+#: tree: about 27 adds inside a tile, then the carry, a left fold with one
+#: add a tile the segment spans) and the plain version in Hillis-Steele
+#: order (log2 E <= 27 adds); each order's error is at most its depth
+#: times float32's 2^-24 times the scan of |x|. That bound holds on the
+#: engine's graph, where a hub spans at most 40 tiles: under 100 adds in
+#: all, 6e-6 of the scan of |x|. It does not hold for phase 3's longest
+#: segments: the one-segment case folds 3073 tiles (bound 1.9e-4) and the
+#: hub case up to 300 (2.1e-5). Those cases stay inside 1e-5 only because
+#: their values, uniform in [-1, 1) at a fixed seed, cancel: each add errs
+#: by at most 2^-24 of the running sum, and running sums of values of
+#: random sign stay far below the scan of |x|. Positive values (as
+#: PageRank's messages) over such spans would not.
 FLOAT_SUM_RTOL = 1e-5
+#: back-to-back launches of phase 3's repeat check
+REPEATS = 20
 #: PageRank at s22 against float64: max |r32 - r64| / r64. Each float32
 #: superstep's sums err by at most about 80 * 2^-24 (5e-6) relative (the
 #: messages are positive); PageRank contracts by alpha = 0.85 a step, so
@@ -123,6 +141,16 @@ class Background(threading.Thread):
         if self.err is not None:
             raise self.err
         return self.out
+
+
+def ptxas_lines(lib) -> list[str]:
+    """The register, shared-memory and spill lines of a kernel library's
+    ``-Xptxas -v`` log (``titan_tpu_torch.build``), each once, with the
+    number of the library's kernels that print it."""
+    with open(lib._name + ".log") as f:
+        lines = [re.sub(r"^ptxas info\s*:\s*", "", ln.strip()) for ln in f
+                 if re.search(r"registers|spill", ln)]
+    return [f"{lines.count(ln)}x {ln}" for ln in dict.fromkeys(lines)]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -225,16 +253,40 @@ def phase_kernel_cases(F) -> None:
         f"over one call of each case")
 
 
-def seg_inputs(gen, e: int, dtype, density: float, first: bool = True):
+def hub_flags(seed: int, e: int, tile: int):
+    """Hub-like segment starts on the card: segments spanning 2-300 tiles,
+    each followed by a run of 1-8 tiles of short segments (a start every
+    32 elements on average)."""
+    rng = np.random.default_rng(seed)
+    flags = rng.random(e) < 1 / 32
+    pos = int(rng.integers(0, tile))
+    while pos < e:
+        span = int(rng.integers(2 * tile, 300 * tile + 1))
+        flags[pos] = True
+        flags[pos + 1:pos + span] = False
+        pos += span
+        if pos < e:
+            flags[pos] = True
+        pos += int(rng.integers(tile, 8 * tile + 1))
+    return torch.from_numpy(flags).cuda()
+
+
+def seg_inputs(gen, e: int, dtype, density, first: bool = True,
+               tile: int = 0):
     """Random scan inputs on the card: values uniform in [-1, 1) or over
-    the whole int32 range, segment starts with ``density``, and
-    ``flags[0]`` set to ``first``."""
+    the whole int32 range, segment starts with ``density`` (or hub-like
+    ones, ``hub_flags``, when it is "hubs"), and ``flags[0]`` set to
+    ``first``."""
     if dtype == torch.float32:
         values = torch.rand((e,), generator=gen, device="cuda") * 2 - 1
     else:
         values = torch.randint(-2**31, 2**31, (e,), generator=gen,
                                device="cuda", dtype=torch.int32)
-    flags = torch.rand((e,), generator=gen, device="cuda") < density
+    if density == "hubs":
+        flags = hub_flags(int(torch.randint(0, 2**31, (), generator=gen,
+                                            device="cuda")), e, tile)
+    else:
+        flags = torch.rand((e,), generator=gen, device="cuda") < density
     flags[0] = first
     return values, flags
 
@@ -260,8 +312,10 @@ def phase_seg_scan_cases(S) -> None:
     cases = [(e, d, True, "random starts") for e, d in (
         (1, 0.5), (70, 0.2), (tile - 1, 0.01), (tile, 0.01),
         (tile + 1, 0.01), (1 << 20, 1e-3), (big, 1e-5))]
-    cases += [(big, 0.0, False, "one segment spanning every tile"),
-              (big, 1.0, True, "every element its own segment"),
+    one, hubs = ((big, 0.0, False, "one segment spanning every tile"),
+                 (big, "hubs", True, "hub-like segments spanning 2-300 "
+                                     "tiles"))
+    cases += [one, hubs, (big, 1.0, True, "every element its own segment"),
               (1 << 20, 1e-3, False, "flags[0] False")]
     launches0 = S.seg_scan.launches
     k_total = p_total = 0.0
@@ -269,7 +323,8 @@ def phase_seg_scan_cases(S) -> None:
     for dtype in (torch.float32, torch.int32):
         for combine in S.COMBINES:
             for e, density, first, what in cases:
-                values, flags = seg_inputs(gen, e, dtype, density, first)
+                values, flags = seg_inputs(gen, e, dtype, density, first,
+                                           tile)
                 got = S.seg_scan(values, flags, combine)
                 ref = S.seg_scan_reference(values, flags, combine)
                 err = scan_error(S, got, ref, values, flags, combine)
@@ -285,13 +340,23 @@ def phase_seg_scan_cases(S) -> None:
                 k_total, p_total = k_total + k_ms, p_total + p_ms
                 n_cases += 1
                 del values, flags, got, ref, again
+    for e, density, first, what in (one, hubs):
+        values, flags = seg_inputs(gen, e, torch.float32, density, first,
+                                   tile)
+        runs = [S.seg_scan(values, flags, "sum") for _ in range(REPEATS)]
+        same = sum(torch.equal(r, runs[0]) for r in runs)
+        say(f"seg_scan sum float32 E={e} ({what}): {same}/{REPEATS} "
+            f"back-to-back launches bit-equal to the first")
+        check(same == REPEATS, "back-to-back seg_scan runs differ")
+        del values, flags, runs
     torch.cuda.empty_cache()
     say(f"phase 3: seg_scan agrees with its plain version in "
         f"{n_cases}/{n_cases} cases (min, max and int32 sums exact; "
         f"float32 sums within {FLOAT_SUM_RTOL:g} of the scan of |x|), "
-        f"bit-equal run to run, {S.seg_scan.launches - launches0} "
-        f"launches; kernel {k_total:.4f} ms against plain {p_total:.4f} ms, "
-        f"summed over one call of each case")
+        f"bit-equal run to run ({REPEATS} back-to-back float32 sums twice), "
+        f"tile {tile}, {S.seg_scan.launches - launches0} launches; kernel "
+        f"{k_total:.4f} ms against plain {p_total:.4f} ms, summed over one "
+        f"call of each case")
 
 
 def sample_sources(deg, k: int):
@@ -375,12 +440,27 @@ def seg_scan_replay(S, SG, g, msg, n, deg) -> dict:
     """The widest main-path call, one PageRank superstep's [E] messages:
     agreement with the plain version, times, the byte bound, and
     torch.segment_reduce (the same combine, scan and gather, in one
-    PyTorch call) timed beside the port's combine."""
+    PyTorch call) timed beside the port's combine. Also, at the same
+    flags, the int32 ``min`` of BFS and WCC over random labels (exact
+    against the plain version) and a plain ``copy_`` of the messages,
+    the rate the card reaches for traffic with no dependences."""
     got = S.seg_scan(msg, g.flags, "sum")
     ref = S.seg_scan_reference(msg, g.flags, "sum")
     err = scan_error(S, got, ref, msg, g.flags, "sum")
     ms = cuda_ms(lambda: S.seg_scan(msg, g.flags, "sum"), 20, warmup=2)
     plain_ms = cuda_ms(lambda: S.seg_scan_reference(msg, g.flags, "sum"), 3)
+    del got, ref
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    labels = torch.randint(0, n, msg.shape, generator=gen, device="cuda",
+                           dtype=torch.int32)
+    scan_error(S, S.seg_scan(labels, g.flags, "min"),
+               S.seg_scan_reference(labels, g.flags, "min"), labels,
+               g.flags, "min")
+    min_ms = cuda_ms(lambda: S.seg_scan(labels, g.flags, "min"), 20,
+                     warmup=2)
+    dst = torch.empty_like(msg)
+    copy_ms = cuda_ms(lambda: dst.copy_(msg), 20, warmup=2)
+    del labels, dst
 
     def combine():
         return SG.segment_combine(msg, g.dst, n, "sum", last_idx=g.last_idx,
@@ -396,9 +476,12 @@ def seg_scan_replay(S, SG, g, msg, n, deg) -> dict:
     library_ms = cuda_ms(library, 10, warmup=2)
     e = msg.numel()
     nbytes = e * (msg.element_size() + 1 + msg.element_size())
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"E": e, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "combine_ms": combine_ms, "library_ms": library_ms,
-            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+            "bytes": nbytes, "bound_ms": bound_ms, "share": bound_ms / ms,
+            "min_ms": min_ms, "copy_ms": copy_ms,
+            "copy_bytes": 2 * e * msg.element_size()}
 
 
 def superstep_parts(SG, g, rank, inv_outdeg, n) -> dict:
@@ -517,11 +600,18 @@ def phase_engine(S, P, G, ref, card) -> dict:
     say(f"phase 5: widest seg_scan call (a PageRank superstep's messages, "
         f"E={rec['E']}): max_abs_err {rec['max_abs_err']:.3g} (float32 "
         f"sum, within {FLOAT_SUM_RTOL:g} of the scan of |x|); kernel "
-        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bytes']} bytes at 3.35 TB/s: "
-        f"values and flags read once, out written once); the whole "
+        f"{rec['ms']:.4f} ms (mean of 20), plain {rec['plain_ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bytes']} bytes at 3.35 "
+        f"TB/s: values and flags read once, out written once), "
+        f"{100 * rec['share']:.1f}% of the bound, "
+        f"{rec['bytes'] / rec['ms'] / 1e9:.3f} TB/s; the whole "
         f"combine {rec['combine_ms']:.4f} ms against torch.segment_reduce "
         f"{rec['library_ms']:.4f} ms")
+    say(f"phase 5: at the same flags, seg_scan min int32 (BFS's and WCC's "
+        f"combine, random labels): exact; {rec['min_ms']:.4f} ms (mean of "
+        f"20), {100 * rec['bound_ms'] / rec['min_ms']:.1f}% of the bound; a "
+        f"plain copy_ of the messages {rec['copy_ms']:.4f} ms, "
+        f"{rec['copy_bytes'] / rec['copy_ms'] / 1e9:.3f} TB/s")
     say(f"phase 5: one PageRank superstep on {card}, device ms: "
         + json.dumps(parts))
     return {**SEG_KERNEL, "launches": launches,
@@ -758,6 +848,9 @@ def main() -> int:
         b.result()
     say(f"phase 1: built frontier_round and seg_scan (nvcc, sm_90a) and "
         f"the native Graph500 library in {time.time() - t0:.1f} s")
+    for name, lib in (("frontier_round", F.kernel_library()),
+                      ("seg_scan", S.kernel_library())):
+        say(f"phase 1: ptxas {name}: " + "; ".join(ptxas_lines(lib)))
 
     def host_build(scale):
         t = time.time()

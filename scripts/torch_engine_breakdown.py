@@ -13,8 +13,8 @@ supersteps) through ``GPUGraphComputer.run`` it measures:
   (CUDA events recorded at each call of the engine's
   ``segment_combine``, so a superstep runs from one combine to the next);
 * one run under ``torch.profiler``: the device's busy and idle shares
-  and the device time by kernel name (``seg_scan``'s three kernels
-  summed as ``match_ms``).
+  and the device time by kernel name (``seg_scan``'s kernel as
+  ``match_ms``; its scratch memset is listed apart).
 
 With ``--out``, the summary (JSON) and the Chrome trace are written to
 DIR.
@@ -31,8 +31,8 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# the launches of csrc/seg_scan.cu
-SCAN_KERNELS = ("tile_reduce", "carry_scan", "tile_scan")
+# the kernel of csrc/seg_scan.cu
+SCAN_KERNELS = ("seg_scan_kernel",)
 
 
 def superstep_times(E, run) -> tuple[float, list[float]]:

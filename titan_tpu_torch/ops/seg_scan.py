@@ -11,9 +11,12 @@ type's maximum (``+inf`` for floats), the type's minimum (``-inf``).
 ``seg_scan`` runs ``seg_scan_reference`` when its tensors lie on the
 CPU, and the CUDA kernel (``csrc/seg_scan.cu``) when they lie on a card;
 there is no other route. The kernel is built with ``nvcc`` at first use
-and bound with ctypes. Its float sums add in another order than the
-plain version's, so the two agree to a tolerance, not bit for bit; min,
-max and integer sums agree exactly.
+and bound with ctypes. It is one launch, a single pass with decoupled
+look-back between tiles, after the wrapper zeroes its scratch (the
+tile statuses and a ticket counter). Its float sums add in another order
+than the plain version's, so the two agree to a tolerance, not bit for
+bit, but the same inputs give the same bits on every run; min, max and
+integer sums agree exactly.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ def kernel_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_cuda("seg_scan"))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.tt_seg_scan.restype = i32
-    lib.tt_seg_scan.argtypes = [i32, i32, p, p, i64, p, p, p, p, p]
+    lib.tt_seg_scan.argtypes = [i32, i32, p, p, i64, p, p, p]
     lib.tt_seg_scan_tile.restype = i32
     return lib
 
@@ -96,15 +99,14 @@ def _launch(values, flags, combine: str):
     if e == 0:
         return out
     lib = kernel_library()
-    ntiles = -(-e // lib.tt_seg_scan_tile())
-    tile_v = torch.empty((ntiles,), dtype=values.dtype, device=dev)
-    tile_f = torch.empty((ntiles,), dtype=torch.uint8, device=dev)
-    carry = torch.empty((ntiles,), dtype=values.dtype, device=dev)
+    # the tile statuses, then the ticket counter; zeroed every call, so
+    # no call reads a status an earlier one left
+    scratch = torch.zeros((-(-e // lib.tt_seg_scan_tile()) + 1,),
+                          dtype=torch.int64, device=dev)
     err = lib.tt_seg_scan(
         _DTYPE_CODE[values.dtype], COMBINES.index(combine),
         values.data_ptr(), flags.data_ptr(), e, out.data_ptr(),
-        tile_v.data_ptr(), tile_f.data_ptr(), carry.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"seg_scan: CUDA error {err} at launch")
     seg_scan.launches += 1

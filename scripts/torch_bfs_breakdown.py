@@ -31,8 +31,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = ("_head_loop", "_td_step", "_frontier_of", "_bu_open", "_bu_rounds",
          "_bu_exhaust", "_level_stats", "_endgame")
-# the launches of csrc/frontier_round.cu
-ROUND_KERNELS = ("round_test", "scan_counts", "compact")
+# the kernel of csrc/frontier_round.cu (one launch a call)
+ROUND_KERNELS = ("frontier_round_kernel",)
 
 
 def step_times(P, g, src):

@@ -13,7 +13,10 @@ ladder never changes a result: a narrow miss is re-tested at full width.
 ``frontier_round`` runs ``frontier_round_reference`` when its tensors lie
 on the CPU, and the CUDA kernel (``csrc/frontier_round.cu``) when they
 lie on a card; there is no other route. The kernel is built with
-``nvcc`` at first use and bound with ctypes.
+``nvcc`` at first use and bound with ctypes. It is one launch, a
+persistent pass that ranks survivors by decoupled look-back between
+tiles, after the wrapper zeroes its scratch (the tile statuses and a
+ticket counter).
 """
 
 from __future__ import annotations
@@ -37,9 +40,9 @@ def kernel_library() -> ctypes.CDLL:
     lib.tt_frontier_round.argtypes = (
         [p] * 8                      # cols undec has_more pay0 pay1 fbits tbits dstT
         + [i64, i32, i64, i64, i64, i32, i32, i32]  # C K Q nb tb lanes fill0 fill1
-        + [p] * 7                    # found out0 out1 nsur surv counts offsets
+        + [p] * 5                    # found out0 out1 nsur scratch
         + [p])                       # stream
-    lib.tt_frontier_round_threads.restype = i32
+    lib.tt_frontier_round_tile.restype = i32
     return lib
 
 
@@ -112,15 +115,14 @@ def _launch(cols, undec, has_more, pay0, pay1, fbits, tbits, dstT, lanes,
     if tbits is not None:
         _check("tbits", tbits, torch.uint8, (tbits.shape[0],), dev)
     lib = kernel_library()
-    threads = lib.tt_frontier_round_threads()
-    nblocks = max(1, -(-C // threads))
     found = torch.empty((K, C), dtype=torch.bool, device=dev)
     out0 = torch.empty((C,), dtype=torch.int32, device=dev)
     out1 = torch.empty((C,), dtype=torch.int32, device=dev)
     nsur = torch.empty((1,), dtype=torch.int32, device=dev)
-    surv = torch.empty((max(C, 1),), dtype=torch.uint8, device=dev)
-    counts = torch.empty((nblocks,), dtype=torch.int32, device=dev)
-    offsets = torch.empty((nblocks,), dtype=torch.int32, device=dev)
+    # the tile statuses, then the ticket counter; zeroed every call, so
+    # no call reads a status an earlier one left
+    scratch = torch.zeros((-(-C // lib.tt_frontier_round_tile()) + 1,),
+                          dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.tt_frontier_round(
         cols.data_ptr(), undec.data_ptr(), has_more.data_ptr(),
@@ -129,7 +131,7 @@ def _launch(cols, undec, has_more, pay0, pay1, fbits, tbits, dstT, lanes,
         C, K, Q, fbits.shape[1], 0 if tbits is None else tbits.shape[0],
         lanes, fill0, fill1,
         found.data_ptr(), out0.data_ptr(), out1.data_ptr(), nsur.data_ptr(),
-        surv.data_ptr(), counts.data_ptr(), offsets.data_ptr(), stream)
+        scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"frontier_round: CUDA error {err} at launch")
     frontier_round.launches += 1

@@ -56,9 +56,24 @@ Phases, each of which raises on failure:
    time the kernel against its plain version and its bound: the widest
    (the first of the largest C) and the one whose bound bytes are
    largest (``round_bytes``: the smaller of the ``[8, Q]`` and ``[Q, 8]``
-   counts of the dstT sectors).
+   counts of the dstT sectors);
+7. the batched ``[K, n]`` BFS on phase 6's graph: the serving layer's
+   BFS cohort (K = 16 sources by bench.py's rule; one warm-up, best of
+   3, one traced run) with every row bit-equal to ``frontier_bfs_hybrid``
+   from its source, its wall time beside the 16 single-source best
+   times, the per-level split into plan, rounds and exhaust, the largest
+   exhaust ``p_cap`` and the peak memory; the interactive lane's hops
+   batch (K = 16, depth 2, ``start_level`` 1, the depth kept by an
+   ``on_level`` mask) against a top-down expansion in plain torch; the
+   widest K = 16 ``frontier_round`` call replayed twice, as run and with
+   1% of slots tombstoned; then at scale 16 the batched BFS on the card
+   equals the CPU port under a live overlay with adds and removals, with
+   level masks, in a checkpoint and a resume from it, and with jobs
+   dropped through ``on_level``.
 
-The line before the last is the ``{"kernels": [...]}`` record; the last
+The line before the last is the ``{"kernels": [...]}`` record (the
+frontier_round record's ``launches`` sums its paths, listed under
+``launches_by_path``); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits 1 and prints no result.
 """
@@ -786,36 +801,45 @@ def round_bytes(a, lanes: int) -> dict:
     col = a["cols"].long().clamp(0, Q - 1)
     j = torch.arange(C, device=dev)
     live = undec.any(0)
-    lane = torch.arange(8, device=dev)[:, None]
-    if tb is None:
-        open_ = torch.ones((8, C), dtype=torch.bool, device=dev)
-    else:
+    open_ = None
+    if tb is not None:
+        lane = torch.arange(8, device=dev)[:, None]
         w = tb[col.clamp(max=tb.numel() - 1)].int()   # slot col*8+l: byte col
         open_ = ((w[None] >> lane) & 1) == 0
-    fb_offsets = []
+    # the 32-byte sectors of the K bitmaps that the tests touch, marked job
+    # by job: no [K, lanes, C] temporary (34 GB at K = 16, C = 2^26)
+    touched = torch.zeros(((K * nb - 1) >> 5) + 1, dtype=torch.bool,
+                          device=dev)
 
     def test(l0, l1, want):
         """Hits of lanes [l0, l1) for the [K, C] candidates in ``want``."""
         par = dstT[l0:l1][:, col]
         byte = (par >> 3).long().clamp(0, nb - 1)
-        tested = want[:, None, :] & open_[l0:l1][None]       # [K, L, C]
-        kk = torch.arange(K, device=dev)[:, None, None] * nb
-        fb_offsets.append((kk + byte[None]).expand_as(tested)[tested])
-        bit = (fb[:, byte].int() >> (par & 7)[None]) & 1
-        return (tested & (bit > 0)).any(1)
+        shift = (par & 7).to(torch.uint8)
+        hit = torch.empty((K, C), dtype=torch.bool, device=dev)
+        for k in range(K):
+            tested = want[k][None, :].expand_as(par)
+            if open_ is not None:
+                tested = tested & open_[l0:l1]
+            touched[(k * nb + byte[tested]) >> 5] = True
+            bit = ((fb[k][byte] >> shift) & 1) > 0
+            torch.any(tested & bit, dim=0, out=hit[k])
+        return hit
 
     hit = test(0, lanes, undec)
     missed = undec & ~hit
+    del hit
     wide = missed.any(0) if lanes < 8 else torch.zeros_like(live)
     if lanes < 8:
         missed = missed & ~test(lanes, 8, missed)
     out_miss = missed.any(0)
+    del missed
     surv = out_miss & a["has_more"]
     dstT_8q = sum(sector_bytes(l * Q + col[live if l < lanes else wide], 4)
                   for l in range(8))
     dstT_q8 = sector_bytes(col[live], 32)
     rest = (sector_bytes(j[live], 4) + K * C
-            + sector_bytes(torch.cat(fb_offsets), 1)
+            + 32 * int(touched.sum())
             + (0 if tb is None else sector_bytes(col[live], 1))
             + sector_bytes(j[out_miss], 1) + 2 * sector_bytes(j[surv], 4)
             + K * C + 8 * C + 4)
@@ -930,7 +954,7 @@ def say_replay(name: str, r: dict) -> None:
         f"of it; the survivor count of the byte model equals nsur")
 
 
-def phase_main(F, P, G, host_build, card) -> dict:
+def phase_main(F, P, G, host_build, card) -> tuple:
     from titan_tpu_torch.device import INF
 
     hg, build_s = host_build.result()
@@ -1002,7 +1026,7 @@ def phase_main(F, P, G, host_build, card) -> dict:
     for name, r in recs.items():
         say_replay(name, r)
     w = recs["widest"]
-    return {**KERNEL, "launches": launches,
+    return g, hg, {**KERNEL, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
             "ms": w["ms"], "plain_ms": w["plain_ms"],
             "bound_ms": w["bound_ms"], "bound_by": "bytes",
@@ -1013,6 +1037,350 @@ def phase_main(F, P, G, host_build, card) -> dict:
                 "dstT_8q", "dstT_q8")}} for name, r in recs.items()]}
 
 
+#: the batched BFS cohort and the interactive lane's hops batch: the
+#: serving batcher's and the interactive scheduler's max_batch
+BATCH_K = 16
+#: the interactive shape V(x).out().out()
+HOPS_DEPTH = 2
+#: the share of edge slots the seeded tbits of the K = 16 replay mask
+TOMB_SHARE = 0.01
+#: exhaust pairs a slice at s16 (card and CPU alike), so the card folds
+#: many slices there; at s26 the module's own slice is used
+SMALL_EXHAUST_SLICE = 1 << 12
+
+
+class BatchedTrace:
+    """CUDA events around the batched BFS's level steps (plan, rounds,
+    exhaust, overlay scatter) and every frontier_round call of one run.
+    Keeps the inputs of the widest call (the first of the largest C) for
+    the replay, the largest exhaust p_cap and each level's split."""
+
+    #: each step, the position of its ``level`` argument and its column
+    STEPS = {"_batched_plan": (2, "plan"), "_batched_rounds": (5, "rounds"),
+             "_batched_exhaust": (5, "exhaust"),
+             "_overlay_scatter_batched": (4, "overlay")}
+
+    def __init__(self, P):
+        self.P, self.events, self.calls = P, [], []
+        self.widest, self.p_cap = None, 0
+
+    def __enter__(self):
+        P = self.P
+        self.real = {k: getattr(P, k) for k in (*self.STEPS,
+                                                "frontier_round")}
+
+        def wrap(name, fn, at, col):
+            def traced(*a, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                self.events.append((col, int(a[at]), e0, e1))
+                if col == "exhaust":
+                    self.p_cap = max(self.p_cap, int(a[8]))
+                return out
+            return traced
+
+        def round_(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.real["frontier_round"](*a, **kw)
+            e1.record()
+            C = a[0].shape[0]
+            self.calls.append((C, a[1].shape[0], e0, e1))
+            if self.widest is None or C > self.widest["C"]:
+                self.widest = {"a": dict(zip(ROUND_ARGS, a)), "kw": kw,
+                               "C": C, "index": len(self.calls) - 1}
+            return out
+        for k, (at, col) in self.STEPS.items():
+            setattr(P, k, wrap(k, self.real[k], at, col))
+        P.frontier_round = round_
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.real.items():
+            setattr(self.P, k, fn)
+        torch.cuda.synchronize()
+        return False
+
+    def split(self) -> list[dict]:
+        """Per level: device ms of plan, rounds, exhaust, overlay."""
+        rows = {}
+        for col, level, e0, e1 in self.events:
+            r = rows.setdefault(level, {"level": level, "plan": 0.0,
+                                        "rounds": 0.0, "exhaust": 0.0,
+                                        "overlay": 0.0})
+            r[col] += e0.elapsed_time(e1)
+        return [rows[k] for k in sorted(rows)]
+
+    def kernel_ms(self) -> float:
+        return sum(e0.elapsed_time(e1) for _, _, e0, e1 in self.calls)
+
+
+def expand_once(g, mask):
+    """The top-down neighbour set of the vertices in ``mask`` (bool [n]),
+    in plain torch from dstT: each vertex's columns, all 8 lanes, pads
+    dropped; in slices of 2^24 columns."""
+    n, dstT = g["n"], g["dstT"]
+    v = torch.nonzero(mask).flatten()
+    cnt = g["degc"][v].long()
+    first = g["colstart"][v].long()
+    ends = torch.cumsum(cnt, 0)
+    total = int(ends[-1]) if v.numel() else 0
+    out = torch.zeros(n + 2, dtype=torch.bool, device=dstT.device)
+    step = 1 << 24
+    for c0 in range(0, total, step):
+        j = torch.arange(c0, min(c0 + step, total), device=dstT.device)
+        owner = torch.searchsorted(ends, j, right=True)
+        cols = first[owner] + (j - (ends[owner] - cnt[owner]))
+        out[dstT[:, cols].flatten().long()] = True
+    return out[:n]
+
+
+def hop_encoding(g, x: int, depth: int, start_level: int):
+    """What a hops run of ``depth`` sweeps from ``x`` leaves in its dist
+    row: the last hop h a vertex is in, stamped h + start_level, 0 where
+    none; from ``expand_once`` alone."""
+    cur = torch.zeros(g["n"], dtype=torch.bool, device=g["dstT"].device)
+    cur[x] = True
+    enc = torch.where(cur, start_level, 0).to(torch.int32)
+    sizes = []
+    for h in range(1, depth + 1):
+        cur = expand_once(g, cur)
+        enc[cur] = h + start_level
+        sizes.append(int(cur.sum()))
+    return enc, sizes
+
+
+def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict]:
+    """Phase 7 at s26 on phase 6's graph: the K = 16 BFS cohort against
+    16 single-source runs, the interactive hops batch against a top-down
+    expansion, and the widest K = 16 frontier_round call replayed with
+    and without tbits. Returns the replays and the paths' launches."""
+    from titan_tpu_torch.device import INF
+
+    n = g["n"]
+    srcs = sample_sources(hg["deg"], BATCH_K)
+    deg_orig = np.asarray(hg["deg_orig"])
+    deg_dev = G.device_degrees(deg_orig, "cuda")
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t
+
+    # the references: single-source BFS from each source, best of REPS
+    singles = []
+    for src in srcs:
+        best = None
+        for _ in range(REPS):
+            (dist, levels), t = wall(lambda: P.frontier_bfs_hybrid(
+                g, src, return_device=True))
+            if best is None or t < best[2]:
+                best = (dist, levels, t)
+        singles.append(best)
+    t_singles = sum(b[2] for b in singles)
+    edges = [G.reachable_edge_sum(b[0], deg_orig, INF, deg_dev=deg_dev)[0]
+             // 2 for b in singles]
+
+    # ---- the main path (the serving batcher's BFS cohort), counts from 0
+    F.frontier_round.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+
+    def cohort():
+        return P.frontier_bfs_batched(g, srcs, return_device=True)
+    cohort()                                             # warm-up
+    runs = []
+    for _ in range(REPS):
+        runs.append(wall(cohort))
+    (dist, levels, completed), t_batch = min(runs, key=lambda r: r[1])
+    with BatchedTrace(P) as tr:
+        _, t_traced = wall(cohort)
+    launches = F.frontier_round.launches
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    per_run = len(tr.calls)
+    check(per_run > 0 and launches == (2 + REPS) * per_run,
+          f"the cohort launched frontier_round {launches} times over "
+          f"{2 + REPS} runs of {per_run} calls")
+    check(all(k == BATCH_K for _, k, _, _ in tr.calls),
+          "a cohort round ran with another K")
+    check(bool(completed.all()), "a cohort job did not complete")
+    for k, (d1, lv1, _) in enumerate(singles):
+        check(torch.equal(dist[k], d1), f"cohort row {k} (source "
+              f"{srcs[k]}) differs from frontier_bfs_hybrid")
+        check(int(levels[k]) == lv1, f"cohort row {k}: {levels[k]} "
+              f"levels, frontier_bfs_hybrid {lv1}")
+    del runs, singles
+    m_batch = sum(edges)
+    say(f"phase 7: K={BATCH_K} cohort at s{SCALE} on {card}: all 16 rows "
+        f"bit-equal to frontier_bfs_hybrid from the same sources, levels "
+        f"equal, every job completed; batched wall {t_batch:.4f} s (best "
+        f"of {REPS} after a warm-up; traced run {t_traced:.4f} s) against "
+        f"{t_singles:.4f} s summed over the 16 single-source best-of-"
+        f"{REPS} times; {m_batch} traversed input edges summed over the "
+        f"jobs (Graph500's count), {m_batch / t_batch:.6g} edges/s over "
+        f"the batched wall ({sum(edges) / t_singles:.6g} over the summed "
+        f"single-source times); frontier_round {launches} launches over "
+        f"{2 + REPS} runs ({per_run} a run, K={BATCH_K}), "
+        f"{tr.kernel_ms():.4f} ms summed in the traced run; largest "
+        f"exhaust p_cap {tr.p_cap}; peak memory "
+        f"{peak / 2**30:.3f} GiB ({(peak - base_mem) / 2**30:.3f} GiB "
+        f"above the graph and the 16 reference rows)")
+    say(f"phase 7: cohort per-level split on {card} (device ms by CUDA "
+        f"events, traced run): " + json.dumps(
+            [{k: (round(v, 4) if isinstance(v, float) else v)
+              for k, v in r.items()} for r in tr.split()]))
+    widest = {**tr.widest, "source": "cohort"}
+    del tr, dist
+
+    # ---- the interactive lane's hops batch, counts from 0
+    depths = [HOPS_DEPTH] * BATCH_K
+
+    def on_level(level, nf):
+        keep = np.asarray([level <= d for d in depths])
+        return keep if not keep.all() else None
+
+    def hops():
+        return P.frontier_bfs_batched(
+            g, srcs, max_levels=HOPS_DEPTH + 1, start_level=1,
+            on_level=on_level, mode="hops", return_device=True)
+    F.frontier_round.launches = 0
+    hops()
+    h_runs = [wall(hops) for _ in range(REPS)]
+    h_launches = F.frontier_round.launches
+    # ---- end of the hops path
+    (hd, _, _), t_hops = min(h_runs, key=lambda r: r[1])
+    check(h_launches > 0, "the hops batch never launched frontier_round")
+    sizes = []
+    for k, x in enumerate(srcs):
+        enc, sz = hop_encoding(g, x, HOPS_DEPTH, 1)
+        check(torch.equal(hd[k], enc), f"hops row {k} (start {x}) differs "
+              f"from the top-down expansion")
+        sizes.append(sz)
+    del h_runs, hd
+    say(f"phase 7: hops batch K={BATCH_K}, depth {HOPS_DEPTH}, start_level "
+        f"1 at s{SCALE} on {card}: every row equals a top-down expansion "
+        f"from dstT in plain torch (dist == 3 is hop 2, dist == 2 hop 1 "
+        f"minus hop 2, dist == 1 the start if in neither); hop-1 and hop-2 "
+        f"sizes {sizes}; {t_hops:.4f} s (best of {REPS}), frontier_round "
+        f"{h_launches} launches over {1 + REPS} runs")
+
+    # ---- the widest K = 16 call, replayed as run and with seeded tbits
+    recs = {"cohort_k16": replay(F, widest)}
+    q = g["dstT"].shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    tb = torch.zeros(q, dtype=torch.uint8, device="cuda")
+    for b in range(8):
+        tb |= ((torch.rand(q, generator=gen, device="cuda") < TOMB_SHARE)
+               .to(torch.uint8) << b)
+    masked = {**widest, "a": {**widest["a"], "tbits": tb}}
+    recs["cohort_k16_tbits"] = replay(F, masked)
+    for name, r in recs.items():
+        say_replay(f"{name} (K={BATCH_K}) on {card}:", r)
+    del widest, masked, tb
+    torch.cuda.empty_cache()
+    return ([{"replay": name, "K": BATCH_K, **{k: r[k] for k in (
+        "source", "call", "C", "nsur", "ms", "plain_ms", "bound_ms",
+        "bound_ms_8q", "bound_ms_q8", "bytes_8q", "bytes_q8", "dstT_8q",
+        "dstT_q8")}} for name, r in recs.items()],
+            {"bfs_batched": launches, "hops": h_launches})
+
+
+def phase_batched_small(F, P, G, SN, OV, card) -> None:
+    """Phase 7 at s16: the batched BFS on the card equals the port on the
+    CPU under a live overlay with adds and removals, with level masks, in
+    a checkpoint and a resume from it, and with a job dropped through
+    on_level; every card run launches frontier_round, the overlay and
+    mask runs with tbits."""
+    hg = G.load_or_build(SMALL_SCALE, EDGE_FACTOR, seed=SEED, verbose=False)
+    snap = SN.from_chunked_csr(hg)
+    rng = np.random.default_rng(21)
+    srcs = sample_sources(hg["deg"], BATCH_K)
+    n = snap.n
+    add_s = rng.integers(0, n, 300).astype(np.int32)
+    add_d = rng.integers(0, n, 300).astype(np.int32)
+    rm = rng.choice(snap.num_edges, 150, replace=False)
+    graphs = {dev: P.build_chunked_csr(snap, dev) for dev in ("cuda", "cpu")}
+    lm = rng.integers(0, 256, graphs["cpu"]["q_total"]).astype(np.uint8)
+    lm[-1] = 0                                   # the all-pad sink column
+
+    def views(dev):
+        ov = OV.DeltaOverlay(snap, min_cap=1024, device=dev)
+        ov.append_edges(np.concatenate([add_s, add_d]),
+                        np.concatenate([add_d, add_s]),
+                        np.zeros(600, np.int32))
+        for i in rm:
+            u, v = int(snap.src[i]), int(snap.dst[i])
+            ov.remove_edge(u, v, None)
+            ov.remove_edge(v, u, None)
+        return ov.view()
+
+    real_slice = P.EXHAUST_SLICE
+    P.EXHAUST_SLICE = SMALL_EXHAUST_SLICE
+    try:
+        out, masked_calls = {}, {}
+        for dev, g in graphs.items():
+            lmt = torch.from_numpy(lm).to(dev)
+            caps = {}
+
+            def keep(level, dist, active):
+                caps[level] = dist
+
+            def drop(level, nf):
+                return np.arange(BATCH_K) >= 4 if level >= 2 else None
+            calls = []
+            real = P.frontier_round
+
+            def spy(*a, **kw):
+                calls.append(a[6] is not None)
+                return real(*a, **kw)
+            P.frontier_round = spy
+            try:
+                runs = {
+                    "overlay": P.frontier_bfs_batched(
+                        g, srcs, overlay=views(dev), device=dev),
+                    "level_masks": P.frontier_bfs_batched(
+                        g, srcs, mode="hops", start_level=1, max_levels=4,
+                        level_masks=[None, lmt, lmt], device=dev),
+                    "full": P.frontier_bfs_batched(g, srcs, device=dev,
+                                                   checkpoint=keep)}
+                runs["resume"] = P.frontier_bfs_batched(
+                    g, srcs, init_dist=caps[2][:, :n], start_level=2,
+                    device=dev)
+                runs["drop"] = P.frontier_bfs_batched(g, srcs,
+                                                      on_level=drop,
+                                                      device=dev)
+            finally:
+                P.frontier_round = real
+            out[dev] = runs
+            masked_calls[dev] = (len(calls), sum(calls))
+    finally:
+        P.EXHAUST_SLICE = real_slice
+    for name in out["cpu"]:
+        a, b = out["cuda"][name], out["cpu"][name]
+        check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+              and np.array_equal(a[2], b[2]),
+              f"s{SMALL_SCALE} batched {name}: the card differs from the CPU")
+    check(np.array_equal(out["cuda"]["resume"][0], out["cuda"]["full"][0]),
+          "the resumed run differs from the uninterrupted one")
+    total, masked = masked_calls["cuda"]
+    check(total > 0 and masked > 0, "the s16 card runs did not launch "
+          "frontier_round with tbits")
+    say(f"phase 7: s{SMALL_SCALE} batched BFS (K={BATCH_K}, exhaust slices "
+        f"of {SMALL_EXHAUST_SLICE} pairs) on the card equals the CPU port "
+        f"under a live overlay (600 rows added, {2 * len(rm)} removed), "
+        f"with level masks [None, mask, mask] in hops mode, uninterrupted "
+        f"and resumed from its level-2 checkpoint (equal to each other), "
+        f"and with 4 jobs dropped at level 2; frontier_round {total} calls "
+        f"on the card, {masked} of them with tbits")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1020,6 +1388,8 @@ def main() -> int:
     from titan_tpu_torch import native
     from titan_tpu_torch.models import bfs_hybrid as P
     from titan_tpu_torch.olap import graph500 as G
+    from titan_tpu_torch.olap import snapshot as SN
+    from titan_tpu_torch.olap.live import overlay as OV
     from titan_tpu_torch.ops import frontier as F
     from titan_tpu_torch.ops import seg_scan as S
 
@@ -1052,7 +1422,14 @@ def main() -> int:
     seg_rec = phase_engine(S, P, G, ref, card)
     del ref               # and with it the s22 graph cached on the card
     torch.cuda.empty_cache()
-    rec = phase_main(F, P, G, main_build, card)
+    g, hg, rec = phase_main(F, P, G, main_build, card)
+    replays, paths = phase_batched(F, P, G, g, hg, card)
+    del g
+    torch.cuda.empty_cache()
+    phase_batched_small(F, P, G, SN, OV, card)
+    rec["replays"] += replays
+    rec["launches_by_path"] = {"bfs": rec["launches"], **paths}
+    rec["launches"] = sum(rec["launches_by_path"].values())
     print(json.dumps({"kernels": [rec, seg_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -136,3 +136,86 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.nvcc()
+
+
+def _hit_any_whole(fbits, tbits, par, pcols):
+    """The plain round's former test: one [K, l, C] int32 word array."""
+    nb = fbits.shape[1]
+    byte = (par >> 3).clamp(0, nb - 1).long()
+    w = fbits[:, byte].to(torch.int32)                   # (K, l, C)
+    h = ((w >> (par & 7)) & 1) > 0
+    if tbits is not None:
+        lane = torch.arange(par.shape[0])[:, None]
+        slot = pcols[None, :] * 8 + lane
+        tw = tbits[(slot >> 3).clamp(0, tbits.shape[0] - 1)].to(torch.int32)
+        h = h & ~(((tw >> (slot & 7).to(torch.int32)) & 1) > 0)[None]
+    return h.any(dim=1)
+
+
+def _round_bytes_whole(a, lanes):
+    """chip_smoke.round_bytes in its former whole form ([K, l, C]
+    temporaries and every bitmap offset listed)."""
+    import chip_smoke as cs
+    dstT, fb, tb, undec = a["dstT"], a["fbits"], a["tbits"], a["undec"]
+    K, C = undec.shape
+    Q, nb = dstT.shape[1], fb.shape[1]
+    col = a["cols"].long().clamp(0, Q - 1)
+    j = torch.arange(C)
+    live = undec.any(0)
+    lane = torch.arange(8)[:, None]
+    if tb is None:
+        open_ = torch.ones((8, C), dtype=torch.bool)
+    else:
+        w = tb[col.clamp(max=tb.numel() - 1)].int()
+        open_ = ((w[None] >> lane) & 1) == 0
+    fb_offsets = []
+
+    def test(l0, l1, want):
+        par = dstT[l0:l1][:, col]
+        byte = (par >> 3).long().clamp(0, nb - 1)
+        tested = want[:, None, :] & open_[l0:l1][None]
+        kk = torch.arange(K)[:, None, None] * nb
+        fb_offsets.append((kk + byte[None]).expand_as(tested)[tested])
+        bit = (fb[:, byte].int() >> (par & 7)[None]) & 1
+        return (tested & (bit > 0)).any(1)
+
+    hit = test(0, lanes, undec)
+    missed = undec & ~hit
+    wide = missed.any(0) if lanes < 8 else torch.zeros_like(live)
+    if lanes < 8:
+        missed = missed & ~test(lanes, 8, missed)
+    out_miss = missed.any(0)
+    surv = out_miss & a["has_more"]
+    sb = cs.sector_bytes
+    dstT_8q = sum(sb(l * Q + col[live if l < lanes else wide], 4)
+                  for l in range(8))
+    dstT_q8 = sb(col[live], 32)
+    rest = (sb(j[live], 4) + K * C + sb(torch.cat(fb_offsets), 1)
+            + (0 if tb is None else sb(col[live], 1))
+            + sb(j[out_miss], 1) + 2 * sb(j[surv], 4) + K * C + 8 * C + 4)
+    return {"bytes": rest + min(dstT_8q, dstT_q8), "bytes_8q": rest + dstT_8q,
+            "bytes_q8": rest + dstT_q8, "dstT_8q": dstT_8q,
+            "dstT_q8": dstT_q8, "live": int(live.sum()),
+            "nsur": int(surv.sum())}
+
+
+@pytest.mark.parametrize("lanes", [2, 8])
+@pytest.mark.parametrize("masked", [False, True])
+def test_job_by_job_forms_equal_the_whole_forms_at_k40(lanes, masked):
+    """At K = 40 (two of the kernel's job groups) the plain round's job-by-
+    job bitmap test equals the former [K, l, C] form, so the plain round's
+    outputs do not change, and chip_smoke.round_bytes, which marks the
+    bitmap sectors job by job, counts what its former whole form counted."""
+    import chip_smoke as cs
+    a = _inputs(5, 40, 300, 97, 700, masked)
+    a["fbits"][:, 3::5] = 0                  # some sectors no test touches
+    t = {k: None if v is None else torch.from_numpy(v) for k, v in a.items()}
+    c = t["cols"].long().clamp(0, 96)
+    for l0, l1 in ((0, lanes), (lanes, 8), (0, 8)):
+        par = t["dstT"][l0:l1][:, c]
+        assert torch.equal(F._hit_any(t["fbits"], t["tbits"], par, c),
+                           _hit_any_whole(t["fbits"], t["tbits"], par, c))
+    assert cs.round_bytes(t, lanes) == _round_bytes_whole(t, lanes)
+    found, _, _, nsur = _run(F.frontier_round, a, lanes, -7, -9)
+    assert found.shape == (40, 300)
+    assert cs.round_bytes(t, lanes)["nsur"] == int(nsur)

@@ -31,7 +31,9 @@ def _imports(path):
 def test_the_port_scripts_are_scanned():
     names = {p.name for p in FILES}
     assert {"torch_bfs_breakdown.py", "torch_engine_breakdown.py",
-            "seg_scan.py", "engine.py"} <= names
+            "seg_scan.py", "engine.py", "overlay.py"} <= names
+    assert ROOT / "titan_tpu_torch" / "olap" / "live" / "__init__.py" \
+        in FILES
 
 
 def test_guard_sees_the_prefix_correctly():

@@ -7,7 +7,9 @@ Edges are stored dst-sorted (``dst`` ascending, the pull layout), and
 package's numpy branch does), ``from_numpy`` (the arrays of any snapshot
 with the same fields, such as the JAX package's) and
 ``from_chunked_csr`` (the port's symmetric Graph500 graph, with no host
-sort). The OLTP build, refresh and the live-plane merges are not ported.
+sort). ``out_csr`` gives the source-sorted view that the chunked BFS
+layout and the live overlay's slot lookup read. The OLTP build, refresh
+and the live-plane merges are not ported.
 """
 
 from __future__ import annotations
@@ -32,6 +34,12 @@ class GraphSnapshot:
     # device -> olap/engine.DeviceGraph, filled by engine.device_graph
     _device_graphs: dict = field(default_factory=dict, init=False,
                                  repr=False, compare=False)
+    # out_csr's cache: (dst_by_src, indptr_out) and the src-order
+    # permutation (src-order position -> dst-order row)
+    _out_csr: Optional[tuple] = field(default=None, init=False, repr=False,
+                                      compare=False)
+    _out_csr_order: Optional[np.ndarray] = field(default=None, init=False,
+                                                 repr=False, compare=False)
 
     @property
     def num_edges(self) -> int:
@@ -42,6 +50,23 @@ class GraphSnapshot:
         if i >= self.n or self.vertex_ids[i] != vertex_id:
             raise KeyError(f"vertex {vertex_id} not in snapshot")
         return i
+
+    def out_csr(self) -> tuple[np.ndarray, np.ndarray]:
+        """``(dst_by_src, indptr_out)``: the edges sorted by SOURCE, the
+        push/expansion layout. A stable argsort by ``src``, so each
+        source's edges keep their dst-sorted order (the JAX package's
+        native counting sort is stable too and gives the same order).
+        Computed once and cached with the permutation itself,
+        ``_out_csr_order`` (src-order position -> dst-order row), which
+        the live overlay's slot lookup reads."""
+        if self._out_csr is None:
+            indptr_out = np.concatenate(
+                [np.zeros(1, np.int64),
+                 np.cumsum(self.out_degree, dtype=np.int64)])
+            order = np.argsort(self.src, kind="stable")
+            self._out_csr = (self.dst[order], indptr_out)
+            self._out_csr_order = order.astype(np.int64)
+        return self._out_csr
 
     def reverse(self) -> "GraphSnapshot":
         """Swap edge direction (push layout / in-degree programs)."""

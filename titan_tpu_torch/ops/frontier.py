@@ -49,17 +49,26 @@ def kernel_library() -> ctypes.CDLL:
 def _hit_any(fbits, tbits, par, pcols):
     """(l, C) gathered parents -> (K, C) any-lane bitmap hit, with
     tombstoned slots masked. Byte and slot indices are clamped into
-    range exactly as the kernel clamps them."""
+    range exactly as the kernel clamps them. Goes job by job, so the
+    temporaries stay (l, C) uint8 whatever K is (a whole [K, l, C] word
+    array would take 34 GB at K = 16 and C = 2^26)."""
     nb = fbits.shape[1]
     byte = (par >> 3).clamp(0, nb - 1).long()
-    w = fbits[:, byte].to(torch.int32)                   # (K, l, C)
-    h = ((w >> (par & 7)) & 1) > 0
+    shift = (par & 7).to(torch.uint8)
+    open_ = None
     if tbits is not None:
         lane = torch.arange(par.shape[0], device=par.device)[:, None]
         slot = pcols[None, :] * 8 + lane                  # int64
-        tw = tbits[(slot >> 3).clamp(0, tbits.shape[0] - 1)].to(torch.int32)
-        h = h & ~(((tw >> (slot & 7).to(torch.int32)) & 1) > 0)[None]
-    return h.any(dim=1)
+        tw = tbits[(slot >> 3).clamp(0, tbits.shape[0] - 1)]
+        open_ = ((tw >> (slot & 7).to(torch.uint8)) & 1) == 0
+    out = torch.empty((fbits.shape[0], par.shape[1]), dtype=torch.bool,
+                      device=par.device)
+    for k in range(fbits.shape[0]):
+        h = ((fbits[k][byte] >> shift) & 1) > 0           # (l, C)
+        if open_ is not None:
+            h &= open_
+        torch.any(h, dim=0, out=out[k])
+    return out
 
 
 def frontier_round_reference(cols, undec, has_more, pay0, pay1, fbits,

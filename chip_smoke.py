@@ -69,7 +69,26 @@ Phases, each of which raises on failure:
    1% of slots tombstoned; then at scale 16 the batched BFS on the card
    equals the CPU port under a live overlay with adds and removals, with
    level masks, in a checkpoint and a resume from it, and with jobs
-   dropped through ``on_level``.
+   dropped through ``on_level``;
+8. the frontier models at scale 22, on a chunked-CSR dict from phase 5's
+   host build: ``pagerank_dense`` as bench.py's LiveJournal stage runs it
+   (2 warm-up iterations, then seconds an iteration over 10) and its
+   20-iteration ranks against phase 5's float64 PageRank; the batched
+   personalized PageRank of 16 users (bench.py's source rule), every row
+   against ``pagerank_dense(reset=one-hot)`` on the card
+   (``PPR_RTOL``), and its ``top_k_per_user``; ``frontier_sssp`` from
+   bench.py's SSSP source (the first vertex of degree > 0), checked by
+   its edges (``check_sssp``); ``frontier_wcc`` equal to scipy's
+   components; the K = 4 SSSP cohort, every row and round count
+   bit-equal to its solo run;
+9. bench.py's ``sssp_wcc`` stage on phase 6's scale-26 graph: one
+   ``frontier_sssp`` with ``_trace_rounds`` and ``_trace_plan_drain``
+   set (seconds, rounds, plan seconds a round, each round's plan and
+   pushes), then ``frontier_wcc`` without them (seconds, rounds, the
+   ``frontier_round`` launches of its BFS peel), the peak memory; SSSP
+   checked by its edges, WCC by its edges and label rules, its giant
+   label's set equal to the set a BFS from phase 6's first source
+   reaches.
 
 The line before the last is the ``{"kernels": [...]}`` record (the
 frontier_round record's ``launches`` sums its paths, listed under
@@ -127,6 +146,16 @@ REPEATS = 20
 #: messages are positive); PageRank contracts by alpha = 0.85 a step, so
 #: 20 steps accumulate under 5e-6 / 0.15 = 3.3e-5.
 PAGERANK_RTOL = 1e-4
+#: a personalized row against pagerank_dense(reset=one-hot) on the card,
+#: max |a - b| / b over b > 0 (and a == 0 exactly where b == 0): both
+#: add the same positive float32 terms, each in the order its atomics
+#: land, so each is within PAGERANK_RTOL of the exact ranks by the
+#: argument above and the two within twice that
+PPR_RTOL = 2 * PAGERANK_RTOL
+#: the personalized batch: the interactive lane's max_batch
+PPR_USERS = 16
+#: the SSSP cohort of phase 8
+SSSP_COHORT = 4
 
 
 T0 = time.time()
@@ -528,6 +557,15 @@ def timed(fn):
     return out, e0.elapsed_time(e1) / 1e3
 
 
+def wall_s(fn):
+    """(fn(), host seconds around the call, the card synchronised)."""
+    torch.cuda.synchronize()
+    t = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t
+
+
 def host_pagerank(snap, alpha: float, iterations: int):
     """Float64 PageRank on the host with scipy.sparse over the snapshot's
     edges, by models/pagerank.py's formula."""
@@ -736,7 +774,8 @@ def phase_engine(S, P, G, ref, card) -> dict:
     return {**SEG_KERNEL, "launches": launches,
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": "bytes", "library_ms": rec["library_ms"]}
+            "bound_by": "bytes", "library_ms": rec["library_ms"]}, \
+        pr_s / pr.iterations
 
 
 def validate(g, dist, source: int, inf: int) -> None:
@@ -1166,19 +1205,12 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict]:
     deg_orig = np.asarray(hg["deg_orig"])
     deg_dev = G.device_degrees(deg_orig, "cuda")
 
-    def wall(fn):
-        torch.cuda.synchronize()
-        t = time.time()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.time() - t
-
     # the references: single-source BFS from each source, best of REPS
     singles = []
     for src in srcs:
         best = None
         for _ in range(REPS):
-            (dist, levels), t = wall(lambda: P.frontier_bfs_hybrid(
+            (dist, levels), t = wall_s(lambda: P.frontier_bfs_hybrid(
                 g, src, return_device=True))
             if best is None or t < best[2]:
                 best = (dist, levels, t)
@@ -1197,10 +1229,10 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict]:
     cohort()                                             # warm-up
     runs = []
     for _ in range(REPS):
-        runs.append(wall(cohort))
+        runs.append(wall_s(cohort))
     (dist, levels, completed), t_batch = min(runs, key=lambda r: r[1])
     with BatchedTrace(P) as tr:
-        _, t_traced = wall(cohort)
+        _, t_traced = wall_s(cohort)
     launches = F.frontier_round.launches
     # ---- end of the main path
     peak = torch.cuda.max_memory_allocated()
@@ -1252,7 +1284,7 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict]:
             on_level=on_level, mode="hops", return_device=True)
     F.frontier_round.launches = 0
     hops()
-    h_runs = [wall(hops) for _ in range(REPS)]
+    h_runs = [wall_s(hops) for _ in range(REPS)]
     h_launches = F.frontier_round.launches
     # ---- end of the hops path
     (hd, _, _), t_hops = min(h_runs, key=lambda r: r[1])
@@ -1381,12 +1413,260 @@ def phase_batched_small(F, P, G, SN, OV, card) -> None:
         f"on the card, {masked} of them with tbits")
 
 
+def edge_windows(FR, g):
+    """(c0, c1, owners int64) over the real columns of ``g`` in windows of
+    2^24 columns (the sink column owns nothing)."""
+    owner = FR._colowner(g)
+    q, step = g["q_total"] - 1, 1 << 24
+    for c0 in range(0, q, step):
+        c1 = min(c0 + step, q)
+        yield c0, c1, owner[c0:c1].long()
+
+
+def check_sssp(FR, g, dist, source: int) -> int:
+    """SSSP checked by its edges, on ``dist``'s device, in column
+    windows: dist[source] == 0; every stored edge (u, v) of weight w (the
+    hash of its slot) with u reached has dist[v] <= fl(dist[u] + w) (no
+    edge can still lower a distance) and joins two reached or two
+    unreached vertices; every reached vertex but the source has a tight
+    in-edge (dist[v] == fl(dist[u] + w)); the unreached hold FINF.
+    Returns the number of reached vertices."""
+    n, dstT = g["n"], g["dstT"]
+    finf = float(FR.FINF)
+    check(float(dist[source]) == 0.0, "dist[source] != 0")
+    tight = torch.zeros(n + 1, dtype=torch.bool, device=dist.device)
+    bad = torch.zeros((), dtype=torch.int64, device=dist.device)
+    for c0, c1, u in edge_windows(FR, g):
+        du = dist[u]
+        ru = du < finf
+        cols = torch.arange(c0, c1, dtype=torch.int64, device=dist.device)
+        for lane in range(8):
+            v = dstT[lane, c0:c1]
+            real = v < n
+            vl = v.clamp(max=n - 1).long()
+            dv = dist[vl]
+            m = du + FR._hash_weight_expr(cols * 8 + lane, 0.0, 1.0)
+            bad += (real & ((ru != (dv < finf)) | (ru & (dv > m)))).sum()
+            tight[torch.where(real & ru & (dv == m), vl, n)] = True
+    reached = dist < finf
+    orphan = reached & ~tight[:n]
+    orphan[source] = False
+    check(int(bad) == 0, f"{int(bad)} edges could still lower a distance "
+          f"or join a reached and an unreached vertex")
+    check(int(orphan.sum()) == 0,
+          f"{int(orphan.sum())} reached vertices have no tight in-edge")
+    check(bool((dist[~reached] == finf).all()), "an unreached vertex does "
+          "not hold FINF")
+    return int(reached.sum())
+
+
+def check_wcc(FR, g, label) -> int:
+    """WCC checked on ``label``'s device: both ends of every stored edge
+    share a label (so each component carries one), no label exceeds its
+    vertex, and each label labels itself. Two components sharing one
+    label would pass: phase 8 compares with scipy's components, phase 9
+    the giant's set with a BFS. Returns the number of labels (vertices
+    that are their own label)."""
+    n, dstT = g["n"], g["dstT"]
+    bad = torch.zeros((), dtype=torch.int64, device=label.device)
+    for _c0, _c1, u in edge_windows(FR, g):
+        lu = label[u]
+        for lane in range(8):
+            v = dstT[lane, _c0:_c1]
+            real = v < n
+            bad += (real & (label[v.clamp(max=n - 1).long()] != lu)).sum()
+    ids = torch.arange(n, dtype=torch.int32, device=label.device)
+    check(int(bad) == 0, f"{int(bad)} edges join two labels")
+    check(bool((label <= ids).all()), "a label exceeds its vertex")
+    check(bool((label[label.long()] == label).all()), "a label is not its "
+          "own label")
+    return int((label == ids).sum())
+
+
+def phase_frontier_s22(F, P, G, FR, PR, ref, card, superstep_s) -> int:
+    """Phase 8 at s22 on a chunked-CSR dict from phase 5's host build:
+    dense PageRank as bench.py times it, the personalized batch, SSSP,
+    WCC and the SSSP cohort. Returns the WCC peel's frontier_round
+    launches."""
+    hg = ref["hg"]
+    g = G.graph_from_numpy(hg, "cuda")
+    n = g["n"]
+
+    # ---- pagerank_dense as bench.py's pagerank_stage runs it
+    FR.pagerank_dense(g, iterations=2, return_device=True)       # warm
+    _, t10 = wall_s(lambda: FR.pagerank_dense(g, iterations=10,
+                                              return_device=True))
+    sec_it = t10 / 10
+    (pr, it), t20 = wall_s(lambda: FR.pagerank_dense(g, iterations=20,
+                                                     return_device=True))
+    rel = float(np.max(np.abs(pr.cpu().numpy() - ref["pagerank"])
+                       / ref["pagerank"]))
+    check(it == 20, f"pagerank_dense ran {it} iterations")
+    check(rel <= PAGERANK_RTOL, f"pagerank_dense differs from float64 by "
+          f"{rel}")
+    say(f"phase 8: s{ENGINE_SCALE} pagerank_dense on {card}: "
+        f"{sec_it:.6f} s an iteration (bench.py's pagerank_lj_sec_per_iter "
+        f"rule: the host wall of 10 iterations after a 2-iteration warm-up, "
+        f"over 10; bench.py reports this one); 20 iterations in "
+        f"{t20:.4f} s, within {rel:.3g} of float64 scipy (tolerance "
+        f"{PAGERANK_RTOL:g}); beside it the engine's PageRank, "
+        f"{superstep_s:.6f} s a superstep (phase 5, GPUGraphComputer.run "
+        f"over 20)")
+    del pr
+
+    # ---- the personalized batch of the interactive lane
+    users = sample_sources(hg["deg"], PPR_USERS)
+    (ranks, _), t_ppr = wall_s(lambda: PR.pagerank_personalized_batched(
+        g, users, iterations=20, return_device=True))
+    worst, t_rows = 0.0, 0.0
+    for s, v in enumerate(users):
+        one = torch.zeros(n, dtype=torch.float32, device="cuda")
+        one[v] = 1.0
+        (row, _), t = wall_s(lambda: FR.pagerank_dense(
+            g, iterations=20, reset=one, return_device=True))
+        t_rows += t
+        live = row > 0
+        check(torch.equal(live, ranks[s] > 0), f"user {s}: the batched "
+              f"row is zero elsewhere than pagerank_dense(reset=one-hot)")
+        err = float(((ranks[s][live] - row[live]).abs() / row[live]).max())
+        check(err <= PPR_RTOL, f"user {s} (vertex {v}): the batched row "
+              f"differs from pagerank_dense(reset=one-hot) by {err}")
+        worst = max(worst, err)
+    top = PR.top_k_per_user(ranks, np.arange(n), k=10, exclude=users)
+    for s, rows in enumerate(top):
+        vals = [r for _, r in rows]
+        check(len(rows) == 10 and vals == sorted(vals, reverse=True)
+              and users[s] not in [v for v, _ in rows],
+              f"user {s}: top-k rows are not 10 sorted others")
+    say(f"phase 8: personalized PageRank, {PPR_USERS} users (bench.py's "
+        f"source rule), 20 iterations: {t_ppr:.4f} s batched against "
+        f"{t_rows:.4f} s for the {PPR_USERS} pagerank_dense(reset=one-hot) "
+        f"runs; every row within {worst:.3g} of its run (tolerance "
+        f"{PPR_RTOL:g}, relative, zeros equal); top_k_per_user: 10 sorted "
+        f"rows a user, the user's own vertex excluded")
+    del ranks
+
+    # ---- SSSP and WCC from bench.py's source
+    src = int(np.flatnonzero(np.asarray(hg["deg"]) > 0)[0])
+    (dist, rounds), t_sssp = wall_s(lambda: FR.frontier_sssp(
+        g, src, return_device=True))
+    nreach = check_sssp(FR, g, dist, src)
+    F.frontier_round.launches = 0
+    (label, wrounds), t_wcc = wall_s(lambda: FR.frontier_wcc(
+        g, return_device=True))
+    peel = F.frontier_round.launches
+    ncomp = check_wcc(FR, g, label)
+    check(np.array_equal(label.cpu().numpy(), ref["labels"]), "WCC differs "
+          "from scipy's components")
+    check(torch.equal(dist < float(FR.FINF), label == label[src]),
+          "SSSP's reached set is not the source's component")
+    say(f"phase 8: frontier_sssp from {src} (bench.py's source): {rounds} "
+        f"rounds in {t_sssp:.4f} s, {nreach} reached, every edge checked "
+        f"(none can lower a distance, every reached vertex has a tight "
+        f"in-edge); frontier_wcc: {wrounds} rounds (BFS peel levels "
+        f"included) in {t_wcc:.4f} s, equal to scipy's components "
+        f"({ncomp}), frontier_round {peel} launches in the peel")
+    del dist, label
+
+    # ---- the SSSP cohort against its solo runs
+    srcs = sample_sources(hg["deg"], SSSP_COHORT)
+    (outs, crounds, stopped), t_co = wall_s(lambda: FR.frontier_sssp_batched(
+        g, srcs, return_device=True))
+    t_solo = 0.0
+    for k, s in enumerate(srcs):
+        (d1, r1), t = wall_s(lambda: FR.frontier_sssp(g, s,
+                                                      return_device=True))
+        t_solo += t
+        check(torch.equal(outs[k].view(torch.int32), d1.view(torch.int32))
+              and crounds[k] == r1, f"cohort member {k} (source {s}) "
+              f"differs from its solo run")
+    check(stopped == [None] * SSSP_COHORT, "a cohort member stopped")
+    say(f"phase 8: K={SSSP_COHORT} frontier_sssp_batched: every row and "
+        f"round count ({crounds}) bit-equal to its solo run; {t_co:.4f} s "
+        f"against {t_solo:.4f} s for the solo runs")
+    del outs, g
+    torch.cuda.empty_cache()
+    return peel
+
+
+def sssp_round_split(trace) -> list[dict]:
+    """Per round from a drained ``_trace_rounds``: the plan's seconds and
+    the pushes' (from the end of this plan to the start of the next,
+    whose drain waited for them)."""
+    rows = []
+    for i, (band, nf, m8, t, plan_s) in enumerate(trace):
+        push = (trace[i + 1][3] - trace[i + 1][4] - t) \
+            if i + 1 < len(trace) else 0.0
+        rows.append({"round": i, "nf": nf, "m8": m8,
+                     "plan_s": round(plan_s, 6), "push_s": round(push, 6)})
+    return rows
+
+
+def phase_frontier_s26(F, P, FR, g, hg, card) -> int:
+    """Phase 9: bench.py's sssp_wcc stage on the s26 graph, then the
+    checks. Returns the WCC peel's frontier_round launches."""
+    from titan_tpu_torch.device import INF
+
+    src = int(np.flatnonzero(np.asarray(hg["deg"]) > 0)[0])
+    torch.cuda.reset_peak_memory_stats()
+    trace = []
+    g["_trace_rounds"] = trace
+    g["_trace_plan_drain"] = True
+    try:
+        (dist, rounds), t_sssp = wall_s(lambda: FR.frontier_sssp(
+            g, src, return_device=True))
+    finally:
+        del g["_trace_rounds"], g["_trace_plan_drain"]
+    plans = np.asarray([r[4] for r in trace])
+    split = sssp_round_split(trace)
+    # ---- the WCC main path, the kernel counts from 0
+    F.frontier_round.launches = 0
+    (label, wrounds), t_wcc = wall_s(lambda: FR.frontier_wcc(
+        g, return_device=True))
+    peel = F.frontier_round.launches
+    # ---- end of the main path
+    peak = torch.cuda.max_memory_allocated()
+    check(peel > 0, "the WCC peel never launched frontier_round")
+    say(f"phase 9: s{SCALE} frontier_sssp from {src} (bench.py's sssp_wcc, "
+        f"traced and drained as bench.py runs it) on {card}: {rounds} "
+        f"rounds in {t_sssp:.4f} s; plan seconds a round mean "
+        f"{plans.mean():.6f}, p50 {np.median(plans):.6f}, max "
+        f"{plans.max():.6f}, total {plans.sum():.6f} over {len(plans)} "
+        f"plans; pushes {sum(r['push_s'] for r in split):.6f} s in all")
+    say(f"phase 9: each SSSP plan (nf, m8, plan_s, push_s): "
+        + json.dumps(split))
+    say(f"phase 9: s{SCALE} frontier_wcc: {wrounds} rounds (BFS peel levels "
+        f"included) in {t_wcc:.4f} s; frontier_round {peel} launches in "
+        f"the peel; peak memory {peak / 2**30:.3f} GiB")
+    t0 = time.time()
+    nreach = check_sssp(FR, g, dist, src)
+    ncomp = check_wcc(FR, g, label)
+    check(torch.equal(dist < float(FR.FINF), label == label[src]),
+          "SSSP's reached set is not the source's component")
+    bfs_src = sample_sources(hg["deg"], NUM_SOURCES)[0]
+    bfs, _ = P.frontier_bfs_hybrid(g, bfs_src, return_device=True)
+    giant = label == label[bfs_src]
+    check(torch.equal(bfs < INF, giant), "the giant label's set differs "
+          "from what a BFS from phase 6's first source reaches")
+    say(f"phase 9: SSSP checked by its {(g['q_total'] - 1) * 8} slot "
+        f"tests ({nreach} reached, none can lower a distance, every reached "
+        f"vertex has a tight in-edge); WCC checked by its edges and label "
+        f"rules ({ncomp} components), the giant's {int(giant.sum())} "
+        f"vertices equal to a BFS from {bfs_src}; checks "
+        f"{time.time() - t0:.1f} s")
+    del dist, label, bfs, giant
+    torch.cuda.empty_cache()
+    return peel
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from titan_tpu_torch import native
     from titan_tpu_torch.models import bfs_hybrid as P
+    from titan_tpu_torch.models import frontier as FR
+    from titan_tpu_torch.models import pagerank as PR
     from titan_tpu_torch.olap import graph500 as G
     from titan_tpu_torch.olap import snapshot as SN
     from titan_tpu_torch.olap.live import overlay as OV
@@ -1419,16 +1699,20 @@ def main() -> int:
     phase_small(F, P, G)
     ref = engine_references(engine_build)
     main_build.join()     # the timed phases run with the host otherwise idle
-    seg_rec = phase_engine(S, P, G, ref, card)
+    seg_rec, superstep_s = phase_engine(S, P, G, ref, card)
+    peel22 = phase_frontier_s22(F, P, G, FR, PR, ref, card, superstep_s)
     del ref               # and with it the s22 graph cached on the card
     torch.cuda.empty_cache()
     g, hg, rec = phase_main(F, P, G, main_build, card)
     replays, paths = phase_batched(F, P, G, g, hg, card)
+    peel26 = phase_frontier_s26(F, P, FR, g, hg, card)
     del g
     torch.cuda.empty_cache()
     phase_batched_small(F, P, G, SN, OV, card)
     rec["replays"] += replays
-    rec["launches_by_path"] = {"bfs": rec["launches"], **paths}
+    rec["launches_by_path"] = {"bfs": rec["launches"], **paths,
+                               "wcc_peel_s22": peel22,
+                               "wcc_peel_s26": peel26}
     rec["launches"] = sum(rec["launches_by_path"].values())
     print(json.dumps({"kernels": [rec, seg_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {

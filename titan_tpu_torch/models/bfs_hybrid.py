@@ -92,8 +92,8 @@ def build_chunked_csr(snap, device=None) -> dict:
     """Chunked out-CSR of a snapshot on ``device``. Duck-typed: needs
     ``snap.n``, ``snap.out_csr()`` -> (dst_by_src, indptr) and
     ``snap.out_degree``. Returns ``dstT`` [8, Q] int32, ``colstart``
-    [n+1] int32, ``degc`` [n+1] int32 (0 for the sink), ``q_total``
-    and ``n``."""
+    [n+1] int32, ``degc`` and ``deg`` [n+1] int32 (0 for the sink),
+    ``q_total`` and ``n``."""
     dev = resolve_device(device)
     n = snap.n
     dst_by_src, indptr_out = snap.out_csr()
@@ -104,6 +104,8 @@ def build_chunked_csr(snap, device=None) -> dict:
             "colstart": torch.from_numpy(colstart.astype(np.int32)).to(dev),
             "degc": torch.from_numpy(
                 np.concatenate([degc, [0]]).astype(np.int32)).to(dev),
+            "deg": torch.from_numpy(
+                np.concatenate([deg, [0]]).astype(np.int32)).to(dev),
             "q_total": q_total, "n": n}
 
 

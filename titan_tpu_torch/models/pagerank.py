@@ -1,6 +1,5 @@
-"""PageRank as a DenseProgram (port of ``titan_tpu/models/pagerank.py``,
-the vertex-program part; the batched personalized PageRank is not
-ported yet, ROADMAP queue 1, item 5). Pull-mode:
+"""PageRank as a DenseProgram, the batched personalized PageRank and its
+per-user top-k (port of ``titan_tpu/models/pagerank.py``). Pull-mode:
 
     rank' = (1-α)/n + α · Σ_{(u→v)} rank[u] / outdeg[u]
 """
@@ -10,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from titan_tpu_torch.models import frontier as FR
 from titan_tpu_torch.olap.api import DenseMapReduce, DenseProgram
 
 
@@ -62,6 +62,93 @@ class TopRanksMapReduce(DenseMapReduce):
         vals, idx = torch.sort(ranks, descending=True, stable=True)
         vids = np.asarray(snapshot.vertex_ids)[idx[:k].cpu().numpy()]
         return [(int(v), float(r)) for v, r in zip(vids, vals[:k].tolist())]
+
+
+def pagerank_personalized_batched(snap_or_graph, sources=None,
+                                  iterations: int = 20,
+                                  damping: float = 0.85, reset=None,
+                                  return_device: bool = False,
+                                  on_round=None, overlay=None, device=None):
+    """Batched personalized PageRank: one reset row per user over the
+    dense column windows; each window's owners and scatter targets are
+    built once and serve every row. ``sources``: dense vertex indices, row
+    s teleporting to (and starting at) the one-hot of ``sources[s]``;
+    ``reset`` ([S, n], rows summing to 1) overrides them. Each row runs
+    exactly the operations of ``frontier.pagerank_dense(reset=row)``, one
+    row at a time (a flat [S, 8, W] int64 index would take 4.3 GB at S =
+    16 and W = 2^22), so on the CPU it is bit-equal to that run; on a
+    card the scatter-adds add in no fixed order. ``on_round(it)``:
+    per-iteration veto (``frontier.RoundInterrupted``); no per-row
+    ``tol``. Refuses a non-empty live overlay. Returns ``(ranks [S, n],
+    iterations)``."""
+    g, deg = FR._pr_setup(snap_or_graph, overlay, device,
+                          "pagerank_personalized_batched")
+    n = g["n"]
+    dev = g["dstT"].device
+    if reset is not None:
+        r = FR._as_state(reset, torch.float32, dev)
+        if r.dim() != 2 or r.shape[1] != n:
+            raise ValueError(f"reset must be [S, n={n}], got "
+                             f"{tuple(r.shape)}")
+        S = r.shape[0]
+        reset_dev = torch.cat([r, r.new_zeros((S, 1))], dim=1)
+    else:
+        if sources is None or len(sources) == 0:
+            raise ValueError("need sources (dense indices) or reset "
+                             "rows — one per user")
+        src = np.asarray(sources, np.int64)
+        if src.min() < 0 or src.max() >= n:
+            raise IndexError(f"source out of range [0, {n})")
+        S = len(src)
+        reset_dev = torch.zeros((S, n + 1), dtype=torch.float32, device=dev)
+        reset_dev[torch.arange(S, device=dev),
+                  torch.from_numpy(src).to(dev)] = 1.0
+    rank = reset_dev
+    contrib = FR._pr_contrib(rank, deg)
+    windows = FR._pr_windows(g)
+    it = 0
+    for it in range(1, iterations + 1):
+        if on_round is not None and not on_round(it - 1):
+            raise FR.RoundInterrupted(it - 1)
+        acc = FR._acc((S,), g)
+        for w0, w1 in windows:
+            plan = FR._pr_window_plan(g, w0, w1)
+            for s in range(S):
+                FR._pr_window_add(acc[s], contrib[s], plan)
+            del plan
+        rows = [FR._pr_finish_reset(acc[s], rank[s], reset_dev[s], deg,
+                                    damping, n) for s in range(S)]
+        rank = torch.stack([r[0] for r in rows])
+        contrib = torch.stack([r[1] for r in rows])
+        del acc, rows
+    out = rank[:, :n]
+    return (out if return_device else out.cpu().numpy()), it
+
+
+def top_k_per_user(ranks, vertex_ids, k: int = 10, exclude=None):
+    """Per-user top-k ``(vertex id, rank)`` rows from a batched PPR result
+    ([S, n], an array or a tensor). ``exclude`` (optional [S]-list of
+    dense indices, typically each user's own source) drops that vertex
+    from the user's ranking. Zero ranks are never recommended; equal
+    ranks keep the order ``np.argpartition`` leaves them in, as in the
+    JAX package (this is its numpy code)."""
+    ranks = ranks.cpu().numpy() if torch.is_tensor(ranks) \
+        else np.asarray(ranks)
+    S, n = ranks.shape
+    k = min(int(k), n)
+    if k <= 0:
+        return [[] for _ in range(S)]
+    out = []
+    for s in range(S):
+        row = ranks[s]
+        if exclude is not None and exclude[s] is not None:
+            row = row.copy()
+            row[exclude[s]] = -1.0
+        idx = np.argpartition(-row, k - 1)[:k]
+        idx = idx[np.argsort(-row[idx], kind="stable")]
+        out.append([(int(vertex_ids[i]), float(ranks[s][i]))
+                    for i in idx if row[i] > 0.0])
+    return out
 
 
 def run(computer, alpha: float = 0.85, iterations: int = 20, tol: float = 0.0,

@@ -152,7 +152,8 @@ def _upload_rows(arr, dev: torch.device, chunk: int = 1 << 24):
 def graph_from_numpy(host_graph: dict, device=None) -> dict:
     """Host chunked-CSR arrays -> the device dict ``frontier_bfs_hybrid``
     takes (``dstT``, ``colstart``, ``degc`` [n+1] with a trailing 0,
-    ``q_total``, ``n``); the port of the JAX package's ``to_device``.
+    ``q_total``, ``n``, and ``deg`` [n+1] when the host graph has
+    ``deg``); the port of the JAX package's ``to_device``.
     Accepts a ``load_or_build`` result or the JAX package's
     ``build_chunked_csr(snap)["_host"]`` arrays, so both packages can run
     on the very same graph."""
@@ -165,10 +166,14 @@ def graph_from_numpy(host_graph: dict, device=None) -> dict:
         deg = np.asarray(host_graph["deg"]).astype(np.int64)
         degc = np.concatenate([-(-deg // 8), [0]]).astype(np.int32)
     dstT = host_graph["dstT"]
-    return {"dstT": _upload_rows(dstT, dev),
-            "colstart": torch.from_numpy(colstart).to(dev),
-            "degc": torch.from_numpy(degc).to(dev),
-            "q_total": int(dstT.shape[1]), "n": n}
+    out = {"dstT": _upload_rows(dstT, dev),
+           "colstart": torch.from_numpy(colstart).to(dev),
+           "degc": torch.from_numpy(degc).to(dev),
+           "q_total": int(dstT.shape[1]), "n": n}
+    if "deg" in host_graph:
+        out["deg"] = torch.from_numpy(np.concatenate(
+            [np.asarray(host_graph["deg"]), [0]]).astype(np.int32)).to(dev)
+    return out
 
 
 def device_degrees(deg_orig: np.ndarray, device=None) -> torch.Tensor:

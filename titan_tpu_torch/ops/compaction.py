@@ -1,5 +1,5 @@
-"""Stream-compaction primitives for the BFS round loops (port of
-``titan_tpu/ops/compaction.py``).
+"""Stream-compaction primitives for the BFS and frontier round loops
+(port of ``titan_tpu/ops/compaction.py``).
 
 Contract, as in the JAX package: survivors keep ascending input order,
 slots past the survivor count hold the fill value, survivors past
@@ -77,3 +77,39 @@ def claim_reset(claim, keys):
     val = torch.where(ok, CLAIM_SENTINEL, _INT32_MIN).reshape(-1)
     claim.scatter_reduce_(0, idx, val.to(claim.dtype), reduce="amax")
     return claim
+
+
+def banded_frontier(mask, mass, cap: int, k_max: int, budget: int, fill):
+    """Band extraction for the priority-batched frontier schedulers:
+    compact the member ids AND their per-member masses through one shared
+    index, then cut the listed mass into ~``budget``-sized segments.
+
+    ``mask`` [L] selects the band, ``mass`` [L] (nonnegative int32, read
+    elementwise) is each item's chunk count. Returns ``(nf, m8, overflow,
+    flist, bounds)``: ``nf`` listed members (min(count, cap)), ``m8``
+    their total mass (int32), ``overflow`` 1 iff some prefix of the
+    listed mass exceeds int32 (the segment bounds are then unusable and
+    the caller must refuse the round), ``flist`` [cap] member ids
+    ascending (``fill`` past nf), ``bounds`` [k_max+1] list positions such
+    that segment k = flist[bounds[k]:bounds[k+1]] carries ~budget mass (a
+    straddling member lands wholly in its segment).
+
+    The cumsum runs in int64. The JAX package accumulates in int32 with
+    x64 off and detects the wrap (nonnegative masses make the first wrap
+    land negative), which flags exactly the same inputs; without overflow
+    every output is the same, ``m8`` included."""
+    ids = torch.arange(mask.shape[0], dtype=torch.int32, device=mask.device)
+    count, (flist, mlist) = scatter_compact(mask, (ids, mass), cap,
+                                            (fill, 0))
+    nf = torch.clamp(count, max=cap)
+    cmass = torch.cumsum(mlist, 0)                   # int64 for int32 in
+    total = cmass[-1]
+    overflow = (total > 2**31 - 1).to(torch.int32)   # prefixes only grow
+    m8 = torch.clamp(total, max=2**31 - 1).to(torch.int32)
+    targets = torch.arange(1, k_max + 1, dtype=torch.int64,
+                           device=mask.device) * budget
+    bounds = torch.cat([
+        torch.zeros(1, dtype=torch.int32, device=mask.device),
+        torch.clamp(torch.searchsorted(cmass, targets, right=True),
+                    max=cap).to(torch.int32)])
+    return nf, m8, overflow, flist, bounds

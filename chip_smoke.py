@@ -6,14 +6,16 @@
 Phases, each of which raises on failure:
 
 1. print the card's name and power limit; build the kernels from the
-   sources in the checkout (``nvcc`` for ``csrc/frontier_round.cu`` and
-   ``csrc/seg_scan.cu``, ``g++`` for the native Graph500 library), all
-   at once, and print each kernel's ptxas registers, shared memory and
-   spills; start the host builds of the two Graph500 graphs (scale 22,
-   then scale 26) in the background;
+   sources in the checkout (``nvcc`` for ``csrc/frontier_round.cu``,
+   ``csrc/batched_exhaust.cu`` and ``csrc/seg_scan.cu``, ``g++`` for the
+   native Graph500 library), all at once, and print each kernel's ptxas
+   registers, shared memory and spills; start the host builds of the two
+   Graph500 graphs (scale 22, then scale 26) in the background;
 2. hold the ``frontier_round`` CUDA kernel bit-equal to its plain PyTorch
-   version on the card: K in {1, 3}, lanes in {2, 8}, tbits absent and
-   given, C in {70, 2^20}, a case with Q > 2^28 (64-bit offsets), one
+   version on the card, the K jobs' frontiers as vertex-major words:
+   K in {1, 3, 16, 17}, lanes in {2, 8},
+   tbits absent and given, C in {70, 2^20}, a case with Q > 2^28
+   (64-bit offsets), one
    with C = 3*2^22 + 4099 (far more tiles than are resident at once),
    K = 5 with out-of-range columns, parents and slots (the clamps),
    K = 40 (two groups of jobs), every candidate missing the narrow
@@ -22,7 +24,12 @@ Phases, each of which raises on failure:
    ``CASE_SCALE``: the unvisited vertices in order, so the columns rise
    and lie close together, then dead slots); then ``REPEATS``
    back-to-back launches of the largest case, each bit-equal to the
-   first;
+   first; then the ``batched_exhaust`` kernel bit-equal to its plain
+   version: K in {1, 3, 16, 40} with p_total < P, tbits, one owner over
+   2^17 warps (a hub), each pair its own owner, p_total 0 and 1,
+   out-of-range columns and parents (the clamps); then ``REPEATS``
+   back-to-back launches of the hub and the K = 40 case, each bit-equal
+   to the first;
 3. hold the ``seg_scan`` CUDA kernel against its plain PyTorch version on
    the card, for every combine (sum, min, max) and type (float32,
    int32): E in {1, 70, a tile - 1, a tile, a tile + 1, 2^20,
@@ -61,12 +68,16 @@ Phases, each of which raises on failure:
    BFS cohort (K = 16 sources by bench.py's rule; one warm-up, best of
    3, one traced run) with every row bit-equal to ``frontier_bfs_hybrid``
    from its source, its wall time beside the 16 single-source best
-   times, the per-level split into plan, rounds and exhaust, the largest
-   exhaust ``p_cap`` and the peak memory; the interactive lane's hops
-   batch (K = 16, depth 2, ``start_level`` 1, the depth kept by an
-   ``on_level`` mask) against a top-down expansion in plain torch; the
-   widest K = 16 ``frontier_round`` call replayed twice, as run and with
-   1% of slots tombstoned; then at scale 16 the batched BFS on the card
+   times, the per-level split into plan, rounds and exhaust, each
+   ``batched_exhaust`` call's time, the largest exhaust ``p_cap`` and
+   the peak memory; the interactive lane's hops batch (K = 16, depth 2,
+   ``start_level`` 1, the depth kept by an ``on_level`` mask) against a
+   top-down expansion in plain torch; the widest K = 16
+   ``frontier_round`` call replayed twice, as run and with 1% of slots
+   tombstoned, then cut to its first 4, 8 and 16 jobs (``k_sweep``); the
+   largest cohort sweep replayed (``batched_exhaust`` against its plain
+   version, its time against ``exhaust_bytes``' bound); then at scale 16
+   the batched BFS on the card
    equals the CPU port under a live overlay with adds and removals, with
    level masks, in a checkpoint and a resume from it, and with jobs
    dropped through ``on_level``;
@@ -90,8 +101,8 @@ Phases, each of which raises on failure:
    label's set equal to the set a BFS from phase 6's first source
    reaches.
 
-The line before the last is the ``{"kernels": [...]}`` record (the
-frontier_round record's ``launches`` sums its paths, listed under
+The line before the last is the ``{"kernels": [...]}`` record of the
+three kernels (each record's ``launches`` sums its paths, listed under
 ``launches_by_path``); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits 1 and prints no result.
@@ -124,6 +135,11 @@ KERNEL = {"name": "frontier_round", "route": "cuda",
 SEG_KERNEL = {"name": "seg_scan", "route": "cuda",
               "source": "titan_tpu_torch/csrc/seg_scan.cu",
               "replaces": "titan_tpu/ops/pallas_segment.py:41"}
+#: the batched BFS's straggler sweep: its JAX counterpart is XLA (the
+#: found-per-candidate half of _batched_exhaust), not a Pallas kernel
+EXHAUST_KERNEL = {"name": "batched_exhaust", "route": "cuda",
+                  "source": "titan_tpu_torch/csrc/batched_exhaust.cu",
+                  "replaces": "titan_tpu/models/bfs_hybrid.py:1070"}
 #: float32 sums: |kernel - plain| <= FLOAT_SUM_RTOL * (the scan of |x|).
 #: The kernel adds in tile order (16 in a thread, a warp tree, a block
 #: tree: about 27 adds inside a tile, then the carry, a left fold with one
@@ -224,14 +240,88 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 
 
 def pack_rows(bits):
-    """[K, 8*nb] bool -> [K, nb] uint8 little-endian bitmaps."""
-    w = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], device=bits.device)
+    """[K, 8*nb] bool -> [K, nb] uint8 little-endian bitmaps (uint8
+    temporaries: the bits of a byte are distinct, so the sum is an OR)."""
+    sh = torch.arange(8, dtype=torch.uint8, device=bits.device)
     K = bits.shape[0]
-    return (bits.view(K, -1, 8).long() * w).sum(-1).to(torch.uint8)
+    return (bits.view(K, -1, 8).to(torch.uint8) << sh).sum(
+        -1, dtype=torch.uint8)
+
+
+def word_bits(K: int) -> tuple[int, int]:
+    """(Kp, G) of the vertex-major frontier words of K jobs: Kp =
+    min(next_pow2(K), 32) bits a vertex in each of G = ceil(K / 32)
+    planes; job g*32 + k of vertex v is bit v*Kp + k of plane g
+    (``titan_tpu_torch/ops/frontier.py``)."""
+    return min(1 << (K - 1).bit_length(), 32), -(-K // 32)
+
+
+def rows_to_words(rows, K: int):
+    """[K, nb] uint8 job-major bitmaps -> [G, nb*Kp] uint8 words, in
+    plain torch and independent of the package's packer."""
+    Kp, G = word_bits(K)
+    nb, dev = rows.shape[1], rows.device
+    shifts = torch.arange(8, dtype=torch.uint8, device=dev)
+    out = torch.empty((G, nb * Kp), dtype=torch.uint8, device=dev)
+    for g in range(G):
+        w = torch.zeros(nb * 8, dtype=torch.int64, device=dev)
+        for k in range(min(32, K - 32 * g)):
+            bit = ((rows[32 * g + k][:, None] >> shifts) & 1).flatten()
+            w |= bit.long() << k
+        if Kp >= 8:
+            out[g] = w.view(torch.uint8).view(nb * 8, 8)[:, :Kp // 8] \
+                .flatten()
+        else:
+            sh = torch.arange(8 // Kp, device=dev) * Kp
+            out[g] = (w.view(-1, 8 // Kp) << sh).sum(1).to(torch.uint8)
+    return out
+
+
+def words_to_rows(words, K: int):
+    """[G, plane] uint8 words -> [K, ceil(nv/8)] uint8 job-major bitmaps,
+    nv = plane*8/Kp vertices; the inverse of ``rows_to_words``."""
+    Kp, G = word_bits(K)
+    plane, dev = words.shape[1], words.device
+    nv = plane * 8 // Kp
+    if Kp >= 8:
+        b = words.view(G, nv, Kp // 8).long()
+        w = sum(b[:, :, i] << (8 * i) for i in range(Kp // 8))
+    else:
+        sh = torch.arange(8 // Kp, device=dev) * Kp
+        w = ((words[:, :, None].long() >> sh) & ((1 << Kp) - 1)) \
+            .view(G, -1)[:, :nv]
+    bits = torch.zeros((K, -(-nv // 8) * 8), dtype=torch.bool, device=dev)
+    for k in range(K):
+        bits[k, :nv] = ((w[k // 32] >> (k % 32)) & 1) > 0
+    return pack_rows(bits)
+
+
+def as_rows(fbits, K: int):
+    """``(rows, plane)``: the job-major [K, nb] bitmaps of a round's
+    ``fbits`` and the bytes of a words plane of them. ``fbits`` is words
+    ([G, plane]); a [K, nb] array at K > 1 (G < K there) is the
+    job-major layout of the port before words, taken as it is so a copy
+    of this file can count a parent checkout's calls."""
+    Kp, _ = word_bits(K)
+    if K > 1 and fbits.shape[0] == K:
+        return fbits, fbits.shape[1] * Kp
+    return (fbits if K == 1 else words_to_rows(fbits, K)), fbits.shape[1]
+
+
+def first_jobs(a, k: int) -> dict:
+    """The round ``a`` cut to its first k jobs (``undec`` rows and the
+    frontier bits), in the layout ``a`` came in."""
+    K = a["undec"].shape[0]
+    rows, _ = as_rows(a["fbits"], K)
+    rows = rows[:k].contiguous()
+    job_major = K > 1 and a["fbits"].shape[0] == K
+    return {**a, "undec": a["undec"][:k].contiguous(),
+            "fbits": rows if job_major or k == 1 else rows_to_words(rows, k)}
 
 
 def round_inputs(gen, K, C, Q, n_val, masked, kind="random"):
-    """Random round inputs on the card. ``kind``: "random"; "high" puts
+    """Random round inputs on the card, the frontier bits random and
+    given as words (``rows_to_words``). ``kind``: "random"; "high" puts
     half the columns near Q (so lane*Q + col and col*8 + lane pass 2^31
     when Q does 2^28); "junk" puts columns, parents and slots out of
     range, to hold the kernel's clamps to the plain version's;
@@ -270,7 +360,7 @@ def round_inputs(gen, K, C, Q, n_val, masked, kind="random"):
         a["undec"][:] = True
         a["has_more"][:] = True
         a["fbits"][:] = False
-    a["fbits"] = pack_rows(a["fbits"])
+    a["fbits"] = rows_to_words(pack_rows(a["fbits"]), K)
     return a
 
 
@@ -280,7 +370,8 @@ def opener_inputs(gen, g, K, masked):
     candidates are the unvisited vertices of degree > 0 in vertex order,
     so their columns rise and lie close together, followed by dead slots
     (column q_pad, no job) up to the next power of two; random frontier
-    bitmaps, and for K > 1 each job wanting most of the candidates."""
+    bits as words, and for K > 1 each job wanting most of the
+    candidates."""
     from titan_tpu_torch.device import next_pow2
     dev = "cuda"
     n, dstT = g["n"], g["dstT"]
@@ -300,8 +391,8 @@ def opener_inputs(gen, g, K, masked):
         cols=torch.where(alive, g["colstart"][v.long()], q_pad),
         undec=undec, has_more=alive & (g["degc"][v.long()] > 1), pay0=v,
         pay1=torch.ones(C, dtype=torch.int32, device=dev),
-        fbits=pack_rows(torch.rand((K, nb * 8), generator=gen, device=dev)
-                        < 0.15),
+        fbits=rows_to_words(pack_rows(torch.rand(
+            (K, nb * 8), generator=gen, device=dev) < 0.15), K),
         tbits=(torch.randint(0, 256, (dstT.shape[1],), generator=gen,
                              device=dev, dtype=torch.uint8)
                if masked else None),
@@ -324,7 +415,8 @@ def phase_kernel_cases(F, G) -> None:
     tile = F.kernel_library().tt_frontier_round_tile()
     # (K, lanes, tbits given, C, Q, n_val, kind)
     cases = [(K, lanes, masked, C, C + 31, 1 << 20, "random")
-             for C in (70, 1 << 20) for K in (1, 3) for lanes in (2, 8)
+             for C in (70, 1 << 20) for K in (1, 3, 16, 17)
+             for lanes in (2, 8)
              for masked in (False, True)]
     q_big = (1 << 28) + (1 << 24)          # 8*Q and Q*8 pass 2^31
     big = (3 << 22) + 4099                 # far more tiles than resident
@@ -397,6 +489,102 @@ def phase_kernel_cases(F, G) -> None:
         f"{n_cases}/{n_cases} cases (tolerance 0: every output is "
         f"an integer) and run to run ({REPEATS} back-to-back launches), "
         f"tile {tile}, {F.frontier_round.launches - launches0} launches; "
+        f"kernel {k_total:.4f} ms against plain {p_total:.4f} ms, summed "
+        f"over one call of each case")
+
+
+def exhaust_inputs(gen, K, P, Q, nv, c_cap, p_total, kind="random",
+                   masked=False) -> dict:
+    """Random sweep inputs on the card: frontier bits of density 0.02 as
+    words; ``kind`` "random" (owners in sorted runs over [0, c_cap)),
+    "hub" (one owner for every pair), "distinct" (each pair its own
+    owner), "junk" (columns in [-Q, 2Q) and parents in [-64, nv+512), to
+    hold the kernel's clamps to the plain version's). Pairs from
+    ``p_total`` on are dead as ``enumerate_chunk_pairs`` lists them: the
+    all-pad sink column Q - 1, whose parents are the pad vertex nv + 1,
+    which no job holds."""
+    dev = "cuda"
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    junk = kind == "junk"
+    bits = torch.rand((K, ((nv + 9) // 8) * 8), generator=gen,
+                      device=dev) < 0.02
+    bits[:, nv + 1] = False
+    dstT = ri(-64, nv + 512, (8, Q)) if junk else ri(0, nv + 2, (8, Q))
+    dstT[:, Q - 1] = nv + 1
+    cols = ri(-Q, 2 * Q, (P,)) if junk else ri(0, Q - 1, (P,))
+    cols[p_total:] = Q - 1
+    if kind == "hub":
+        owner = torch.zeros(P, dtype=torch.int32, device=dev)
+    elif kind == "distinct":
+        owner = torch.arange(P, dtype=torch.int32, device=dev)
+    else:
+        owner = torch.sort(ri(0, c_cap, (P,))).values
+    return dict(cols=cols, owner=owner,
+                p_total=torch.tensor(p_total, dtype=torch.int32, device=dev),
+                fbits=rows_to_words(pack_rows(bits), K),
+                tbits=(torch.randint(0, 256, (Q,), generator=gen,
+                                     device=dev, dtype=torch.uint8)
+                       if masked else None),
+                dstT=dstT, K=K, c_cap=c_cap)
+
+
+def phase_exhaust_cases(F) -> None:
+    """``batched_exhaust``'s kernel against its plain version on the card,
+    bit-equal, then back-to-back launches each bit-equal to the first."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    m = 1 << 20
+    # (K, P, Q, nv, c_cap, p_total, kind, tbits given, what)
+    cases = [(K, m, m, m, 1 << 16, m - 12345, "random", False, "")
+             for K in (1, 3, 16, 40)]
+    cases += [(16, m, m, m, 1 << 16, m - 99, "random", True, "tbits "),
+              (16, 1 << 22, m, m, 1 << 10, (1 << 22) - 7, "hub", False,
+               "one owner over 2^17 warps "),
+              (16, m, m, m, m, m, "distinct", False,
+               "each pair its own owner "),
+              (3, 1 << 16, 4099, 1000, 512, 0, "random", False,
+               "p_total 0 "),
+              (3, 1 << 16, 4099, 1000, 512, 1, "random", False,
+               "p_total 1 "),
+              (5, 100003, 4099, 1000, 4096, 90001, "junk", True,
+               "out-of-range columns and parents "),
+              (16, 100003, 4099, 1000, 4096, 100003, "junk", False,
+               "out-of-range columns and parents, every pair live ")]
+    launches0 = F.batched_exhaust.launches
+    k_total = p_total = 0.0
+    for K, P, Q, nv, c_cap, pt, kind, masked, what in cases:
+        e = exhaust_inputs(gen, K, P, Q, nv, c_cap, pt, kind, masked)
+        got = exhaust_call(F.batched_exhaust, e)
+        ref = exhaust_call(F.batched_exhaust_reference, e)
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref)
+        k_ms = cuda_ms(lambda: exhaust_call(F.batched_exhaust, e), 5)
+        p_ms = cuda_ms(lambda: exhaust_call(F.batched_exhaust_reference, e),
+                       2)
+        say(f"batched_exhaust K={K} P={P} p_total={pt} c_cap={c_cap} "
+            f"{what}({int(got.sum())} candidate bits found): "
+            f"{'bit-equal' if same else 'DIFFERS'}; kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms")
+        check(same, "batched_exhaust differs from its plain version")
+        if pt == 0:
+            check(not got.any(), "p_total 0 found a candidate")
+        k_total, p_total = k_total + k_ms, p_total + p_ms
+        del e, got, ref
+    for K, P, Q, nv, c_cap, pt, kind, masked, _ in (cases[5], cases[3]):
+        e = exhaust_inputs(gen, K, P, Q, nv, c_cap, pt, kind, masked)
+        runs = [exhaust_call(F._launch_exhaust, e) for _ in range(REPEATS)]
+        same = sum(torch.equal(r, runs[0]) for r in runs)
+        say(f"batched_exhaust K={K} P={P} ({kind}): {same}/{REPEATS} "
+            f"back-to-back launches bit-equal to the first")
+        check(same == REPEATS, "back-to-back batched_exhaust runs differ")
+        del e, runs
+    torch.cuda.empty_cache()
+    say(f"phase 2: batched_exhaust bit-equal to its plain version in "
+        f"{len(cases)}/{len(cases)} cases (tolerance 0: bits) and run to "
+        f"run ({REPEATS} back-to-back launches of the hub and the K = 40 "
+        f"cases), {F.batched_exhaust.launches - launches0} launches; "
         f"kernel {k_total:.4f} ms against plain {p_total:.4f} ms, summed "
         f"over one call of each case")
 
@@ -817,25 +1005,56 @@ def sector_bytes(offsets, itemsize: int) -> int:
     return 32 * torch.unique((offsets * itemsize) >> 5).numel()
 
 
+def word_byte(par, Kp: int, plane: int):
+    """The byte offset of the parents' words in a plane of ``plane``
+    bytes, clamped as the kernels clamp them (int64)."""
+    par = par.long()
+    if Kp >= 8:
+        return par.clamp(0, plane * 8 // Kp - 1) * (Kp // 8)
+    return ((par * Kp) >> 3).clamp(0, plane - 1)
+
+
+def word_value(plane, wbyte, par, Kp: int):
+    """The int64 words of the parents ``par`` at their byte offsets
+    ``wbyte`` (``word_byte``) in one plane (uint8)."""
+    if Kp >= 8:
+        return sum(plane[wbyte + i].long() << (8 * i) for i in range(Kp // 8))
+    return (plane[wbyte].long() >> ((par.long() * Kp) & 7)) & ((1 << Kp) - 1)
+
+
 def round_bytes(a, lanes: int) -> dict:
     """The bytes one round must move for these inputs, each input read
     once and each output written once. A read that depends on the data
     counts the 32-byte sectors this call's data needs: ``cols`` and the
-    dstT lanes of candidates some job still wants; the frontier-bitmap
-    bytes of the parents tested; ``has_more`` for the candidates that
-    missed in every lane; ``pay0``/``pay1`` for the survivors. ``undec``
-    is read whole, and ``found`` and the two compacted lists are written
-    whole. The dstT sectors are counted under two layouts of the same
-    lanes: ``[8, Q]``, the port's, where the leading ``lanes`` rows are
-    read for the wanted candidates and the other rows for those some job
-    missed in them (``dstT_8q``), and ``[Q, 8]``, where one column's 8
-    lanes share one sector (``dstT_q8``: 32 B a distinct wanted column).
-    ``bytes`` takes the smaller: the least the card could move for this
-    work. Also returns the wanted candidates (``live``) and the survivor
-    count this model finds, which must equal the kernel's ``nsur``."""
-    dstT, fb, tb, undec = a["dstT"], a["fbits"], a["tbits"], a["undec"]
+    dstT lanes of candidates some job still wants; the frontier sectors
+    of the parents tested; ``has_more`` for the candidates that missed in
+    every lane; ``pay0``/``pay1`` for the survivors. ``undec`` is read
+    whole, and ``found`` and the two compacted lists are written whole.
+    The dstT sectors are counted under two layouts of the same lanes:
+    ``[8, Q]``, the port's, where the leading ``lanes`` rows are read for
+    the wanted candidates and the other rows for those some job missed
+    in them (``dstT_8q``), and ``[Q, 8]``, where one column's 8 lanes
+    share one sector (``dstT_q8``: 32 B a distinct wanted column). The
+    frontier sectors are counted under two layouts of the same bits:
+    job-major ``[K, nb]`` bitmaps, one sector a (parent, job) tested
+    (``fbits_rows``), and the vertex-major words, one sector a (parent,
+    group of 32 jobs) tested (``fbits_words``). ``bytes`` takes the
+    smaller of each pair: the least the card could move for this work;
+    ``bytes_8q``/``bytes_q8`` fix the dstT layout and ``bytes_rows``/
+    ``bytes_words`` the frontier's. Also returns the wanted candidates
+    (``live``) and the survivor count this model finds, which must equal
+    the kernel's ``nsur``."""
+    dstT, tb, undec, fb = a["dstT"], a["tbits"], a["undec"], a["fbits"]
     K, C = undec.shape
-    Q, nb = dstT.shape[1], fb.shape[1]
+    Kp, G = word_bits(K)
+    # the bits as given: words, or a parent checkout's job-major rows
+    job_major = K > 1 and fb.shape[0] == K
+    if job_major:
+        nb, plane = fb.shape[1], fb.shape[1] * Kp
+    else:
+        plane = fb.shape[1]
+        nb = -(-(plane * 8 // Kp) // 8)
+    Q = dstT.shape[1]
     dev = dstT.device
     col = a["cols"].long().clamp(0, Q - 1)
     j = torch.arange(C, device=dev)
@@ -845,23 +1064,38 @@ def round_bytes(a, lanes: int) -> dict:
         lane = torch.arange(8, device=dev)[:, None]
         w = tb[col.clamp(max=tb.numel() - 1)].int()   # slot col*8+l: byte col
         open_ = ((w[None] >> lane) & 1) == 0
-    # the 32-byte sectors of the K bitmaps that the tests touch, marked job
-    # by job: no [K, lanes, C] temporary (34 GB at K = 16, C = 2^26)
+    # the 32-byte sectors that the tests touch, marked job by job (rows)
+    # and group by group (words): no [K, lanes, C] temporary (34 GB at
+    # K = 16, C = 2^26)
     touched = torch.zeros(((K * nb - 1) >> 5) + 1, dtype=torch.bool,
                           device=dev)
+    wtouched = torch.zeros(((G * plane - 1) >> 5) + 1, dtype=torch.bool,
+                           device=dev)
 
     def test(l0, l1, want):
-        """Hits of lanes [l0, l1) for the [K, C] candidates in ``want``."""
+        """Hits of lanes [l0, l1) for the [K, C] candidates in ``want``,
+        each parent clamped by the rule of the layout given."""
         par = dstT[l0:l1][:, col]
         byte = (par >> 3).long().clamp(0, nb - 1)
         shift = (par & 7).to(torch.uint8)
+        wbyte = word_byte(par, Kp, plane)
+        words = []
+        for g in range(G):
+            tested = want[32 * g:32 * g + 32].any(0)[None, :].expand_as(par)
+            if open_ is not None:
+                tested = tested & open_[l0:l1]
+            wtouched[(g * plane + wbyte[tested]) >> 5] = True
+            if not job_major:
+                words.append(word_value(fb[g], wbyte, par, Kp))
+        del wbyte
         hit = torch.empty((K, C), dtype=torch.bool, device=dev)
         for k in range(K):
             tested = want[k][None, :].expand_as(par)
             if open_ is not None:
                 tested = tested & open_[l0:l1]
             touched[(k * nb + byte[tested]) >> 5] = True
-            bit = ((fb[k][byte] >> shift) & 1) > 0
+            bit = ((fb[k][byte] >> shift) & 1 if job_major
+                   else (words[k >> 5] >> (k & 31)) & 1) > 0
             torch.any(tested & bit, dim=0, out=hit[k])
         return hit
 
@@ -877,15 +1111,99 @@ def round_bytes(a, lanes: int) -> dict:
     dstT_8q = sum(sector_bytes(l * Q + col[live if l < lanes else wide], 4)
                   for l in range(8))
     dstT_q8 = sector_bytes(col[live], 32)
+    fbits_rows = 32 * int(touched.sum())
+    fbits_words = 32 * int(wtouched.sum())
     rest = (sector_bytes(j[live], 4) + K * C
-            + 32 * int(touched.sum())
             + (0 if tb is None else sector_bytes(col[live], 1))
             + sector_bytes(j[out_miss], 1) + 2 * sector_bytes(j[surv], 4)
             + K * C + 8 * C + 4)
-    return {"bytes": rest + min(dstT_8q, dstT_q8), "bytes_8q": rest + dstT_8q,
-            "bytes_q8": rest + dstT_q8, "dstT_8q": dstT_8q,
-            "dstT_q8": dstT_q8, "live": int(live.sum()),
-            "nsur": int(surv.sum())}
+    d_min, f_min = min(dstT_8q, dstT_q8), min(fbits_rows, fbits_words)
+    return {"bytes": rest + d_min + f_min,
+            "bytes_8q": rest + dstT_8q + f_min,
+            "bytes_q8": rest + dstT_q8 + f_min,
+            "bytes_rows": rest + d_min + fbits_rows,
+            "bytes_words": rest + d_min + fbits_words,
+            "dstT_8q": dstT_8q, "dstT_q8": dstT_q8,
+            "fbits_rows": fbits_rows, "fbits_words": fbits_words,
+            "live": int(live.sum()), "nsur": int(surv.sum())}
+
+
+EXHAUST_ARGS = ("cols", "owner", "p_total", "fbits", "tbits", "dstT")
+
+
+def exhaust_call(fn, e):
+    """``fn`` (the sweep's wrapper, plain version or kernel launch) on the
+    inputs ``e``."""
+    return fn(*(e[k] for k in EXHAUST_ARGS), K=e["K"], c_cap=e["c_cap"])
+
+
+def exhaust_bytes(e) -> dict:
+    """The bytes one sweep must move for these inputs, each input read
+    once and each output written once, in the 32-byte sectors this call's
+    data needs: ``cols`` and ``owner`` of the live pairs (j < p_total, a
+    contiguous run); the dstT sectors of their open slots, under
+    ``[8, Q]`` (the port's) and under ``[Q, 8]`` (32 B a distinct column
+    with an open slot), the smaller counting; the ``tbits`` sector of
+    each live column; the word sectors of their open parents, plane by
+    plane; ``p_total``; the ``[G, c_cap]`` words written once. Marked in
+    slices of 2^24 pairs on bool arrays, not listed."""
+    K, c_cap = e["K"], e["c_cap"]
+    Kp, G = word_bits(K)
+    dstT, fb, tb = e["dstT"], e["fbits"], e["tbits"]
+    Q, plane, dev = dstT.shape[1], fb.shape[1], dstT.device
+    live = min(max(int(e["p_total"]), 0), e["cols"].numel())
+    d8q = torch.zeros(((8 * Q * 4 - 1) >> 5) + 1, dtype=torch.bool,
+                      device=dev)
+    dq8 = torch.zeros(Q, dtype=torch.bool, device=dev)
+    tsec = torch.zeros((((tb.numel() if tb is not None else 1) - 1) >> 5)
+                       + 1, dtype=torch.bool, device=dev)
+    wsec = torch.zeros(((G * plane - 1) >> 5) + 1, dtype=torch.bool,
+                       device=dev)
+    lane = torch.arange(8, device=dev)[:, None]
+    step = 1 << 24
+    for s0 in range(0, live, step):
+        col = e["cols"][s0:min(s0 + step, live)].long().clamp(0, Q - 1)
+        if tb is None:
+            open_ = torch.ones((8, col.numel()), dtype=torch.bool,
+                               device=dev)
+        else:
+            tcol = col.clamp(max=tb.numel() - 1)
+            tsec[tcol >> 5] = True
+            open_ = ((tb[tcol][None].int() >> lane) & 1) == 0
+        d8q[((lane * Q + col[None]) * 4 >> 5)[open_]] = True
+        dq8[col[open_.any(0)]] = True
+        wb = word_byte(dstT[:, col], Kp, plane)[open_]
+        for g in range(G):
+            wsec[(g * plane + wb) >> 5] = True
+        del open_, wb
+    pairs = 2 * 32 * (-(-live * 4 // 32))
+    dstT_8q, dstT_q8 = 32 * int(d8q.sum()), 32 * int(dq8.sum())
+    words = 32 * int(wsec.sum())
+    rest = (pairs + (32 * int(tsec.sum()) if tb is not None else 0) + 4
+            + words + G * c_cap * 4)
+    return {"bytes": rest + min(dstT_8q, dstT_q8), "dstT_8q": dstT_8q,
+            "dstT_q8": dstT_q8, "words": words, "live": live}
+
+
+def exhaust_replay(F, e) -> dict:
+    """One sweep replayed: the kernel's words and the wrapper's found_per
+    against the plain version (bit-equal), the kernel's time (its launch
+    and the zeroed words: ``ms``), the wrapper's (with the expansion to
+    [K, c_cap] bool: ``wrapper_ms``) and the plain version's, each the
+    mean of several after a warm-up, and the bound (``exhaust_bytes``)."""
+    got = exhaust_call(F.batched_exhaust, e)
+    ref = exhaust_call(F.batched_exhaust_reference, e)
+    check(torch.equal(got, ref), "batched_exhaust differs from its plain "
+          f"version (K={e['K']}, P={e['cols'].numel()})")
+    ms = cuda_ms(lambda: exhaust_call(F._launch_exhaust, e), 10, warmup=2)
+    wrapper_ms = cuda_ms(lambda: exhaust_call(F.batched_exhaust, e), 10)
+    plain_ms = cuda_ms(lambda: exhaust_call(F.batched_exhaust_reference, e),
+                       2)
+    work = exhaust_bytes(e)
+    return {"K": e["K"], "P": e["cols"].numel(), "c_cap": e["c_cap"],
+            "found": int(got.sum()), "max_abs_err": 0, "ms": ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": work["bytes"] / HBM_BYTES_PER_S * 1e3, **work}
 
 
 ROUND_ARGS = ("cols", "undec", "has_more", "pay0", "pay1", "fbits", "tbits",
@@ -949,7 +1267,9 @@ def replay(F, c) -> dict:
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound(work["bytes"]),
             "bound_ms_8q": bound(work["bytes_8q"]),
-            "bound_ms_q8": bound(work["bytes_q8"]), **work}
+            "bound_ms_q8": bound(work["bytes_q8"]),
+            "bound_ms_rows": bound(work["bytes_rows"]),
+            "bound_ms_words": bound(work["bytes_words"]), **work}
 
 
 def trace_sources(P, g, srcs):
@@ -983,14 +1303,45 @@ def trace_sources(P, g, srcs):
 
 def say_replay(name: str, r: dict) -> None:
     say(f"{name} frontier_round call (source {r['source']}, call "
-        f"{r['call']}) C={r['C']} nsur={r['nsur']}: bit-equal to the plain "
-        f"version (max_abs_err {r['max_abs_err']}, tolerance 0); kernel "
-        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; bytes under "
-        f"[8, Q] {r['bytes_8q']} (dstT {r['dstT_8q']}), under [Q, 8] "
-        f"{r['bytes_q8']} (dstT {r['dstT_q8']}); bound {r['bound_ms']:.4f} "
-        f"ms (the smaller count at 3.35 TB/s; {r['bound_ms_8q']:.4f} and "
-        f"{r['bound_ms_q8']:.4f} ms), {100 * r['bound_ms'] / r['ms']:.1f}% "
+        f"{r['call']}) C={r['C']} K={r['K']} nsur={r['nsur']}: bit-equal to "
+        f"the plain version (max_abs_err {r['max_abs_err']}, tolerance 0); "
+        f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; bytes "
+        f"under [8, Q] {r['bytes_8q']} (dstT {r['dstT_8q']}), under [Q, 8] "
+        f"{r['bytes_q8']} (dstT {r['dstT_q8']}); frontier sectors "
+        f"{r['fbits_rows']} B job-major, {r['fbits_words']} B as words; "
+        f"bound {r['bound_ms']:.4f} ms (the smaller counts at 3.35 TB/s; "
+        f"dstT [8, Q] {r['bound_ms_8q']:.4f}, [Q, 8] {r['bound_ms_q8']:.4f}; "
+        f"frontier job-major {r['bound_ms_rows']:.4f}, words "
+        f"{r['bound_ms_words']:.4f} ms), {100 * r['bound_ms'] / r['ms']:.1f}% "
         f"of it; the survivor count of the byte model equals nsur")
+
+
+#: the jobs the widest cohort call is cut to: the frontier bits of 4 jobs
+#: fit the 50 MB L2 at s26 in either layout, those of 16 do not
+SWEEP_K = (4, 8, 16)
+
+
+def k_sweep(F, widest, card) -> list[dict]:
+    """The widest cohort call replayed with its first k jobs, k in
+    ``SWEEP_K`` (``first_jobs``): time, time a job, bound, and the
+    frontier sectors under both layouts."""
+    out = []
+    for k in SWEEP_K:
+        r = replay(F, {**widest, "a": first_jobs(widest["a"], k)})
+        out.append({"K": k, "ms": r["ms"], "ms_per_job": r["ms"] / k,
+                    **{x: r[x] for x in (
+                        "plain_ms", "bound_ms", "bound_ms_rows",
+                        "bound_ms_words", "fbits_rows", "fbits_words",
+                        "nsur")}})
+        say(f"K sweep on {card}: the widest cohort call (C={r['C']}) cut "
+            f"to its first {k} jobs: kernel {r['ms']:.4f} ms, "
+            f"{r['ms'] / k:.4f} ms a job; bit-equal to the plain version "
+            f"({r['plain_ms']:.4f} ms); frontier sectors {r['fbits_rows']} B "
+            f"job-major, {r['fbits_words']} B as words; bound "
+            f"{r['bound_ms']:.4f} ms (job-major {r['bound_ms_rows']:.4f}, "
+            f"words {r['bound_ms_words']:.4f})")
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_main(F, P, G, host_build, card) -> tuple:
@@ -1083,16 +1434,19 @@ BATCH_K = 16
 HOPS_DEPTH = 2
 #: the share of edge slots the seeded tbits of the K = 16 replay mask
 TOMB_SHARE = 0.01
-#: exhaust pairs a slice at s16 (card and CPU alike), so the card folds
-#: many slices there; at s26 the module's own slice is used
+#: exhaust pairs a slice of the plain sweep at s16, so the CPU folds many
+#: slices there (the kernel does not slice); at s26 the module's own
 SMALL_EXHAUST_SLICE = 1 << 12
 
 
 class BatchedTrace:
     """CUDA events around the batched BFS's level steps (plan, rounds,
-    exhaust, overlay scatter) and every frontier_round call of one run.
-    Keeps the inputs of the widest call (the first of the largest C) for
-    the replay, the largest exhaust p_cap and each level's split."""
+    exhaust, overlay scatter), every frontier_round call and every
+    batched_exhaust call of one run. Keeps the inputs of the widest round
+    (the first of the largest C) and of the largest sweep (the first of
+    the most listed pairs) for the replays, the largest exhaust p_cap and
+    each level's split. (A checkout from before the sweep kernel has no
+    ``batched_exhaust`` to trace; the rest is traced the same.)"""
 
     #: each step, the position of its ``level`` argument and its column
     STEPS = {"_batched_plan": (2, "plan"), "_batched_rounds": (5, "rounds"),
@@ -1100,13 +1454,14 @@ class BatchedTrace:
              "_overlay_scatter_batched": (4, "overlay")}
 
     def __init__(self, P):
-        self.P, self.events, self.calls = P, [], []
-        self.widest, self.p_cap = None, 0
+        self.P, self.events, self.calls, self.sweeps = P, [], [], []
+        self.widest, self.largest, self.p_cap = None, None, 0
 
     def __enter__(self):
         P = self.P
-        self.real = {k: getattr(P, k) for k in (*self.STEPS,
-                                                "frontier_round")}
+        self.real = {k: getattr(P, k) for k in (
+            *self.STEPS, "frontier_round", "batched_exhaust")
+            if hasattr(P, k)}
 
         def wrap(name, fn, at, col):
             def traced(*a, **kw):
@@ -1133,9 +1488,23 @@ class BatchedTrace:
                 self.widest = {"a": dict(zip(ROUND_ARGS, a)), "kw": kw,
                                "C": C, "index": len(self.calls) - 1}
             return out
+        def sweep(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.real["batched_exhaust"](*a, **kw)
+            e1.record()
+            n = a[0].shape[0]
+            self.sweeps.append((n, e0, e1))
+            if self.largest is None or n > self.largest["P"]:
+                self.largest = {**dict(zip(EXHAUST_ARGS, a)), **kw, "P": n,
+                                "index": len(self.sweeps) - 1}
+            return out
         for k, (at, col) in self.STEPS.items():
             setattr(P, k, wrap(k, self.real[k], at, col))
         P.frontier_round = round_
+        if "batched_exhaust" in self.real:
+            P.batched_exhaust = sweep
         return self
 
     def __exit__(self, *exc):
@@ -1156,6 +1525,10 @@ class BatchedTrace:
 
     def kernel_ms(self) -> float:
         return sum(e0.elapsed_time(e1) for _, _, e0, e1 in self.calls)
+
+    def sweep_ms(self) -> list[float]:
+        """Device ms of each batched_exhaust call, in order."""
+        return [e0.elapsed_time(e1) for _, e0, e1 in self.sweeps]
 
 
 def expand_once(g, mask):
@@ -1193,11 +1566,13 @@ def hop_encoding(g, x: int, depth: int, start_level: int):
     return enc, sizes
 
 
-def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict]:
+def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict, list, dict]:
     """Phase 7 at s26 on phase 6's graph: the K = 16 BFS cohort against
     16 single-source runs, the interactive hops batch against a top-down
-    expansion, and the widest K = 16 frontier_round call replayed with
-    and without tbits. Returns the replays and the paths' launches."""
+    expansion, the widest K = 16 frontier_round call replayed with and
+    without tbits and cut to 4, 8 and 16 jobs, and the largest cohort
+    sweep replayed. Returns frontier_round's replays, its launches by
+    path and the K sweep, and batched_exhaust's record."""
     from titan_tpu_torch.device import INF
 
     n = g["n"]
@@ -1221,6 +1596,7 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict]:
 
     # ---- the main path (the serving batcher's BFS cohort), counts from 0
     F.frontier_round.launches = 0
+    F.batched_exhaust.launches = 0
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
 
@@ -1234,12 +1610,16 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict]:
     with BatchedTrace(P) as tr:
         _, t_traced = wall_s(cohort)
     launches = F.frontier_round.launches
+    x_launches = F.batched_exhaust.launches
     # ---- end of the main path
     peak = torch.cuda.max_memory_allocated()
     per_run = len(tr.calls)
     check(per_run > 0 and launches == (2 + REPS) * per_run,
           f"the cohort launched frontier_round {launches} times over "
           f"{2 + REPS} runs of {per_run} calls")
+    check(tr.sweeps and x_launches == (2 + REPS) * len(tr.sweeps),
+          f"the cohort launched batched_exhaust {x_launches} times over "
+          f"{2 + REPS} runs of {len(tr.sweeps)} calls")
     check(all(k == BATCH_K for _, k, _, _ in tr.calls),
           "a cohort round ran with another K")
     check(bool(completed.all()), "a cohort job did not complete")
@@ -1260,8 +1640,10 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict]:
         f"the batched wall ({sum(edges) / t_singles:.6g} over the summed "
         f"single-source times); frontier_round {launches} launches over "
         f"{2 + REPS} runs ({per_run} a run, K={BATCH_K}), "
-        f"{tr.kernel_ms():.4f} ms summed in the traced run; largest "
-        f"exhaust p_cap {tr.p_cap}; peak memory "
+        f"{tr.kernel_ms():.4f} ms summed in the traced run; "
+        f"batched_exhaust {x_launches} launches ({len(tr.sweeps)} a run), "
+        f"{', '.join(f'{x:.4f}' for x in tr.sweep_ms())} ms each in the "
+        f"traced run; largest exhaust p_cap {tr.p_cap}; peak memory "
         f"{peak / 2**30:.3f} GiB ({(peak - base_mem) / 2**30:.3f} GiB "
         f"above the graph and the 16 reference rows)")
     say(f"phase 7: cohort per-level split on {card} (device ms by CUDA "
@@ -1269,6 +1651,7 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict]:
             [{k: (round(v, 4) if isinstance(v, float) else v)
               for k, v in r.items()} for r in tr.split()]))
     widest = {**tr.widest, "source": "cohort"}
+    largest = tr.largest
     del tr, dist
 
     # ---- the interactive lane's hops batch, counts from 0
@@ -1283,9 +1666,11 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict]:
             g, srcs, max_levels=HOPS_DEPTH + 1, start_level=1,
             on_level=on_level, mode="hops", return_device=True)
     F.frontier_round.launches = 0
+    F.batched_exhaust.launches = 0
     hops()
     h_runs = [wall_s(hops) for _ in range(REPS)]
     h_launches = F.frontier_round.launches
+    h_x_launches = F.batched_exhaust.launches
     # ---- end of the hops path
     (hd, _, _), t_hops = min(h_runs, key=lambda r: r[1])
     check(h_launches > 0, "the hops batch never launched frontier_round")
@@ -1301,7 +1686,8 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict]:
         f"from dstT in plain torch (dist == 3 is hop 2, dist == 2 hop 1 "
         f"minus hop 2, dist == 1 the start if in neither); hop-1 and hop-2 "
         f"sizes {sizes}; {t_hops:.4f} s (best of {REPS}), frontier_round "
-        f"{h_launches} launches over {1 + REPS} runs")
+        f"{h_launches} launches, batched_exhaust {h_x_launches}, over "
+        f"{1 + REPS} runs")
 
     # ---- the widest K = 16 call, replayed as run and with seeded tbits
     recs = {"cohort_k16": replay(F, widest)}
@@ -1315,13 +1701,42 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict]:
     recs["cohort_k16_tbits"] = replay(F, masked)
     for name, r in recs.items():
         say_replay(f"{name} (K={BATCH_K}) on {card}:", r)
-    del widest, masked, tb
+    del masked, tb
+    sweep = k_sweep(F, widest, card)
+    del widest
     torch.cuda.empty_cache()
+
+    # ---- the largest cohort sweep, replayed
+    x = exhaust_replay(F, largest)
+    say(f"largest cohort batched_exhaust call (call {largest['index']}, "
+        f"K={x['K']}, P={x['P']}, {x['live']} live pairs, c_cap="
+        f"{x['c_cap']}, {x['found']} candidate bits found) on {card}: "
+        f"bit-equal to the plain version (tolerance 0); kernel "
+        f"{x['ms']:.4f} ms (the launch and its zeroed words; with the "
+        f"wrapper's expansion to [K, c_cap] bool {x['wrapper_ms']:.4f} ms), "
+        f"plain {x['plain_ms']:.4f} ms; bytes {x['bytes']} (dstT "
+        f"[8, Q] {x['dstT_8q']}, [Q, 8] {x['dstT_q8']}; words "
+        f"{x['words']}); bound {x['bound_ms']:.4f} ms at 3.35 TB/s, "
+        f"{100 * x['bound_ms'] / x['ms']:.1f}% of it")
+    del largest
+    torch.cuda.empty_cache()
+    x_rec = {**EXHAUST_KERNEL, "launches": x_launches + h_x_launches,
+             "max_abs_err": 0, "ms": x["ms"], "plain_ms": x["plain_ms"],
+             "bound_ms": x["bound_ms"], "bound_by": "bytes",
+             "library_ms": None,
+             "launches_by_path": {"bfs_batched": x_launches,
+                                  "hops": h_x_launches},
+             "replay": {k: x[k] for k in (
+                 "K", "P", "live", "c_cap", "found", "ms", "wrapper_ms",
+                 "plain_ms", "bound_ms", "bytes", "dstT_8q", "dstT_q8",
+                 "words")}}
     return ([{"replay": name, "K": BATCH_K, **{k: r[k] for k in (
         "source", "call", "C", "nsur", "ms", "plain_ms", "bound_ms",
-        "bound_ms_8q", "bound_ms_q8", "bytes_8q", "bytes_q8", "dstT_8q",
-        "dstT_q8")}} for name, r in recs.items()],
-            {"bfs_batched": launches, "hops": h_launches})
+        "bound_ms_8q", "bound_ms_q8", "bound_ms_rows", "bound_ms_words",
+        "bytes_8q", "bytes_q8", "bytes_rows", "bytes_words", "dstT_8q",
+        "dstT_q8", "fbits_rows", "fbits_words")}}
+             for name, r in recs.items()],
+            {"bfs_batched": launches, "hops": h_launches}, sweep, x_rec)
 
 
 def phase_batched_small(F, P, G, SN, OV, card) -> None:
@@ -1353,8 +1768,8 @@ def phase_batched_small(F, P, G, SN, OV, card) -> None:
             ov.remove_edge(v, u, None)
         return ov.view()
 
-    real_slice = P.EXHAUST_SLICE
-    P.EXHAUST_SLICE = SMALL_EXHAUST_SLICE
+    real_slice = F.EXHAUST_SLICE
+    F.EXHAUST_SLICE = SMALL_EXHAUST_SLICE
     try:
         out, masked_calls = {}, {}
         for dev, g in graphs.items():
@@ -1366,13 +1781,17 @@ def phase_batched_small(F, P, G, SN, OV, card) -> None:
 
             def drop(level, nf):
                 return np.arange(BATCH_K) >= 4 if level >= 2 else None
-            calls = []
-            real = P.frontier_round
+            calls, sweeps = [], []
+            real, real_x = P.frontier_round, P.batched_exhaust
 
             def spy(*a, **kw):
                 calls.append(a[6] is not None)
                 return real(*a, **kw)
-            P.frontier_round = spy
+
+            def spy_x(*a, **kw):
+                sweeps.append(a[4] is not None)
+                return real_x(*a, **kw)
+            P.frontier_round, P.batched_exhaust = spy, spy_x
             try:
                 runs = {
                     "overlay": P.frontier_bfs_batched(
@@ -1389,11 +1808,12 @@ def phase_batched_small(F, P, G, SN, OV, card) -> None:
                                                       on_level=drop,
                                                       device=dev)
             finally:
-                P.frontier_round = real
+                P.frontier_round, P.batched_exhaust = real, real_x
             out[dev] = runs
-            masked_calls[dev] = (len(calls), sum(calls))
+            masked_calls[dev] = (len(calls), sum(calls), len(sweeps),
+                                 sum(sweeps))
     finally:
-        P.EXHAUST_SLICE = real_slice
+        F.EXHAUST_SLICE = real_slice
     for name in out["cpu"]:
         a, b = out["cuda"][name], out["cpu"][name]
         check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
@@ -1401,16 +1821,20 @@ def phase_batched_small(F, P, G, SN, OV, card) -> None:
               f"s{SMALL_SCALE} batched {name}: the card differs from the CPU")
     check(np.array_equal(out["cuda"]["resume"][0], out["cuda"]["full"][0]),
           "the resumed run differs from the uninterrupted one")
-    total, masked = masked_calls["cuda"]
+    total, masked, x_total, x_masked = masked_calls["cuda"]
     check(total > 0 and masked > 0, "the s16 card runs did not launch "
           "frontier_round with tbits")
-    say(f"phase 7: s{SMALL_SCALE} batched BFS (K={BATCH_K}, exhaust slices "
-        f"of {SMALL_EXHAUST_SLICE} pairs) on the card equals the CPU port "
+    check(x_total > 0 and x_masked > 0, "the s16 card runs did not launch "
+          "batched_exhaust with tbits")
+    say(f"phase 7: s{SMALL_SCALE} batched BFS (K={BATCH_K}; the CPU's plain "
+        f"sweep in slices of {SMALL_EXHAUST_SLICE} pairs) on the card "
+        f"equals the CPU port "
         f"under a live overlay (600 rows added, {2 * len(rm)} removed), "
         f"with level masks [None, mask, mask] in hops mode, uninterrupted "
         f"and resumed from its level-2 checkpoint (equal to each other), "
         f"and with 4 jobs dropped at level 2; frontier_round {total} calls "
-        f"on the card, {masked} of them with tbits")
+        f"on the card, {masked} of them with tbits; batched_exhaust "
+        f"{x_total} calls, {x_masked} of them with tbits")
 
 
 def edge_windows(FR, g):
@@ -1676,13 +2100,15 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     t0 = time.time()
-    builds = [Background(F.kernel_library), Background(S.kernel_library),
-              Background(native.library)]
+    builds = [Background(F.kernel_library), Background(F.exhaust_library),
+              Background(S.kernel_library), Background(native.library)]
     for b in builds:
         b.result()
-    say(f"phase 1: built frontier_round and seg_scan (nvcc, sm_90a) and "
-        f"the native Graph500 library in {time.time() - t0:.1f} s")
+    say(f"phase 1: built frontier_round, batched_exhaust and seg_scan "
+        f"(nvcc, sm_90a, one process each, all at once) and the native "
+        f"Graph500 library in {time.time() - t0:.1f} s")
     for name, lib in (("frontier_round", F.kernel_library()),
+                      ("batched_exhaust", F.exhaust_library()),
                       ("seg_scan", S.kernel_library())):
         say(f"phase 1: ptxas {name}: " + "; ".join(ptxas_lines(lib)))
 
@@ -1695,6 +2121,7 @@ def main() -> int:
                                      host_build(SCALE))[1])
 
     phase_kernel_cases(F, G)
+    phase_exhaust_cases(F)
     phase_seg_scan_cases(S)
     phase_small(F, P, G)
     ref = engine_references(engine_build)
@@ -1704,17 +2131,18 @@ def main() -> int:
     del ref               # and with it the s22 graph cached on the card
     torch.cuda.empty_cache()
     g, hg, rec = phase_main(F, P, G, main_build, card)
-    replays, paths = phase_batched(F, P, G, g, hg, card)
+    replays, paths, sweep, x_rec = phase_batched(F, P, G, g, hg, card)
     peel26 = phase_frontier_s26(F, P, FR, g, hg, card)
     del g
     torch.cuda.empty_cache()
     phase_batched_small(F, P, G, SN, OV, card)
     rec["replays"] += replays
+    rec["k_sweep"] = sweep
     rec["launches_by_path"] = {"bfs": rec["launches"], **paths,
                                "wcc_peel_s22": peel22,
                                "wcc_peel_s26": peel26}
     rec["launches"] = sum(rec["launches_by_path"].values())
-    print(json.dumps({"kernels": [rec, seg_rec]}), flush=True)
+    print(json.dumps({"kernels": [rec, seg_rec, x_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

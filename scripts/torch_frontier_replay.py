@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""frontier_round at the BFS main path's widest and heaviest calls.
+"""frontier_round at the BFS main path's widest and heaviest calls, or at
+the widest call of the K = 16 BFS cohort.
 
-    python3 scripts/torch_frontier_replay.py [--out DIR]
+    python3 scripts/torch_frontier_replay.py [--cohort] [--out DIR]
 
 Builds or loads chip_smoke.py's Graph500 graph (scale 26; the port's
 cache under .bench_cache/torch, which chip_smoke.py fills), uploads it
@@ -12,6 +13,13 @@ bound bytes are largest, as phase 6 of chip_smoke.py does: bit-equality
 with the plain version, the kernel's time and the plain version's, and
 the bound under both dstT layouts. With ``--out``, the two replays are
 written to DIR as JSON.
+
+With ``--cohort`` it runs chip_smoke.py phase 7's K = 16 cohort instead
+(16 sources by bench.py's rule; one warm-up, then one run traced by
+``chip_smoke.BatchedTrace``), prints its wall time and per-level split
+(plan, rounds, exhaust), and replays the widest call cut to its first
+4, 8 and 16 jobs (``chip_smoke.k_sweep``): the time a job, and the
+frontier sectors and bound under the job-major and the word layout.
 
 It imports the ``titan_tpu_torch`` and ``chip_smoke.py`` of the
 checkout it lies in. To time another commit's kernel at the same calls
@@ -32,9 +40,37 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def cohort(CS, P, F, g, hg, card, out) -> int:
+    srcs = CS.sample_sources(hg["deg"], CS.BATCH_K)
+
+    def run():
+        return P.frontier_bfs_batched(g, srcs, return_device=True)
+    run()                                                   # warm-up
+    with CS.BatchedTrace(P) as tr:
+        _, seconds = CS.wall_s(run)
+    split = tr.split()
+    print(f"{ROOT} on {card}: K={CS.BATCH_K} cohort traced in "
+          f"{seconds:.4f} s, frontier_round {len(tr.calls)} calls "
+          f"{tr.kernel_ms():.4f} ms summed, largest exhaust p_cap "
+          f"{tr.p_cap}; per level (device ms): {json.dumps(split)}",
+          flush=True)
+    sweep = CS.k_sweep(F, {**tr.widest, "source": "cohort"}, card)
+    if out:
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "cohort_sweep.json"), "w") as f:
+            json.dump({"root": ROOT, "card": card, "seconds": seconds,
+                       "split": split, "p_cap": tr.p_cap,
+                       "kernel_ms": tr.kernel_ms(), "sweep": sweep}, f,
+                      indent=1)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="directory for the JSON summary")
+    ap.add_argument("--cohort", action="store_true",
+                    help="the K = 16 cohort's widest call, cut to 4, 8, 16 "
+                         "jobs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_frontier_replay: no CUDA device", file=sys.stderr)
@@ -49,6 +85,8 @@ def main() -> int:
     hg = G.load_or_build(CS.SCALE, CS.EDGE_FACTOR, seed=CS.SEED,
                          verbose=False)
     g = G.graph_from_numpy(hg, "cuda")
+    if args.cohort:
+        return cohort(CS, P, F, g, hg, card, args.out)
     srcs = CS.sample_sources(hg["deg"], CS.NUM_SOURCES)
     P.frontier_bfs_hybrid(g, srcs[0], return_device=True)   # warm-up
     widest, heaviest, per_call = CS.trace_sources(P, g, srcs)

@@ -16,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 import titan_tpu.models.bfs_hybrid as H
 import titan_tpu_torch.models.bfs_hybrid as P
+import titan_tpu_torch.ops.frontier as F
 from titan_tpu.olap.tpu import snapshot as snap_mod
 from titan_tpu.olap.tpu.rmat import rmat_edges
 from titan_tpu_torch.device import INF
@@ -286,11 +288,12 @@ def test_forced_exhaust_matches_jax(monkeypatch):
 
 def test_sliced_exhaust_equals_unsliced(monkeypatch):
     """Slices of 3 pairs fold to what one slice gives, in the per-
-    candidate hits and in the whole BFS (bfs and hops mode)."""
+    candidate hits and in the whole BFS (bfs and hops mode); the hits are
+    the JAX package's [K, 8, P] test of job-major bitmaps, folded by
+    owner over the live pairs."""
     rng = np.random.default_rng(0)
     K, C, Q, nv, P_ = 5, 37, 300, 500, 211
-    fbits = torch.from_numpy(rng.integers(0, 256, (K, (nv + 9) // 8))
-                             .astype(np.uint8))
+    rows = rng.integers(0, 256, (K, (nv + 9) // 8)).astype(np.uint8)
     tbits = torch.from_numpy(rng.integers(0, 256, Q).astype(np.uint8))
     dstT = torch.from_numpy(rng.integers(0, nv + 2, (8, Q)).astype(np.int32))
     cols = torch.from_numpy(rng.integers(0, Q, P_).astype(np.int32))
@@ -298,21 +301,25 @@ def test_sliced_exhaust_equals_unsliced(monkeypatch):
     # gives them, so their hits are 0
     dstT[:, Q - 1] = nv + 1
     cols[190:] = Q - 1
-    fbits[:, (nv + 1) >> 3] = 0           # no bit of the pad vertex
+    rows[:, (nv + 1) >> 3] = 0            # no bit of the pad vertex
+    fbits = cs.rows_to_words(torch.from_numpy(rows), K)
     owner = torch.from_numpy(np.sort(rng.integers(0, C, P_))
                              .astype(np.int32))
-    whole = {t: P._found_per_batched(fbits, t, dstT, cols, owner, 190, C)
-             for t in (None, tbits)}
-    monkeypatch.setattr(P, "EXHAUST_SLICE", 3)
+    p_total = torch.tensor(190, dtype=torch.int32)
+
+    def sweep(t):
+        return F.batched_exhaust(cols, owner, p_total, fbits, t, dstT, K=K,
+                                 c_cap=C)
+    whole = {t: sweep(t) for t in (None, tbits)}
+    monkeypatch.setattr(F, "EXHAUST_SLICE", 3)
     for t in (None, tbits):
-        assert torch.equal(
-            P._found_per_batched(fbits, t, dstT, cols, owner, 190, C),
-            whole[t])
-    # one [K, 8, P] test, the JAX package's form
-    hit = P._bit_of_batched(fbits, dstT[:, cols.long()]).any(dim=1)
+        assert torch.equal(sweep(t), whole[t])
+    # one [K, 8, P] test of the job-major bitmaps, the JAX package's form
+    par = dstT[:, cols.long()].numpy()
+    hit = ((rows[:, par >> 3] >> (par & 7)[None]) & 1).any(axis=1)
     ref = np.zeros((K, C), bool)
     for j in range(190):
-        ref[:, owner[j]] |= hit[:, j].numpy()
+        ref[:, owner[j]] |= hit[:, j]
     assert np.array_equal(whole[None].numpy(), ref)
     snap = _hubs()
     srcs = _sources(snap, 8, 4)
@@ -320,10 +327,10 @@ def test_sliced_exhaust_equals_unsliced(monkeypatch):
         sliced = P.frontier_bfs_batched(snap, srcs, mode=mode,
                                         start_level=lv0, max_levels=6,
                                         device="cpu")
-        monkeypatch.setattr(P, "EXHAUST_SLICE", 1 << 22)
+        monkeypatch.setattr(F, "EXHAUST_SLICE", 1 << 22)
         _same(P.frontier_bfs_batched(snap, srcs, mode=mode, start_level=lv0,
                                      max_levels=6, device="cpu"), sliced)
-        monkeypatch.setattr(P, "EXHAUST_SLICE", 3)
+        monkeypatch.setattr(F, "EXHAUST_SLICE", 3)
 
 
 @pytest.mark.parametrize("expand", [False, True])
@@ -381,11 +388,14 @@ def test_pack_bits_batched_matches_numpy():
     nbytes = (n + 2 + 7) // 8
     mask = np.zeros((K, nbytes * 8), bool)
     mask[:, :n + 1] = (dist[:, :n + 1] == level) & active[:, None]
-    assert fb.dtype == torch.uint8 and fb.shape == (K, nbytes)
-    assert np.array_equal(fb.numpy(),
-                          np.packbits(mask, axis=1, bitorder="little"))
+    # K = 5: one plane of 8-bit words, a byte a vertex
+    assert fb.dtype == torch.uint8 and fb.shape == (1, n + 2)
+    words = cs.rows_to_words(torch.from_numpy(
+        np.packbits(mask, axis=1, bitorder="little")), K)
+    assert np.array_equal(fb.numpy(), words[:, :n + 2].numpy())
+    assert not words[:, n + 2:].any()
     idx = torch.from_numpy(rng.integers(0, n + 2, (3, 7)).astype(np.int32))
-    got = P._bit_of_batched(fb, idx)
+    got = P._bit_of_batched(fb, idx, K)
     assert got.shape == (K, 3, 7)
     assert np.array_equal(got.numpy(), mask[:, idx.numpy()])
 

@@ -19,12 +19,15 @@ The second test holds ``frontier_round_reference`` to the numpy oracle
 of tests/test_torch_frontier_round.py on inputs shaped as the bottom-up
 opener makes them: the unvisited vertices of a real chunked CSR in
 vertex order, so the columns rise and lie close together, followed by
-dead slots.
+dead slots. The oracle reads job-major bitmaps; the round gets the same
+bits as words (``chip_smoke.rows_to_words``).
 """
 
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke as cs
 
 import titan_tpu.models.bfs_hybrid as H
 from titan_tpu.olap.tpu import snapshot as snap_mod
@@ -175,6 +178,7 @@ def test_reference_matches_numpy_oracle_on_rising_columns(K, lanes, masked):
     live = a["undec"].any(axis=0)
     assert np.all(np.diff(cols[live].astype(np.int64)) > 0)    # rising
     t = {k: None if v is None else torch.from_numpy(v) for k, v in a.items()}
+    t["fbits"] = cs.rows_to_words(t["fbits"], K)       # the round's words
     found, p0, p1, nsur = F.frontier_round(
         t["cols"], t["undec"], t["has_more"], t["pay0"], t["pay1"],
         t["fbits"], t["tbits"], t["dstT"], lanes=lanes, fill0=-7, fill1=-9)

@@ -3,13 +3,17 @@
 The JAX package's Pallas kernel cannot serve as the oracle here: its
 interpreter path fails under the installed jax (``pl.store`` is gone).
 So the plain version is held against the numpy oracle of
-tests/test_pallas_frontier.py, which states the kernel contract, and
-the CUDA kernel is held against the plain version on the card by
-chip_smoke.py."""
+tests/test_pallas_frontier.py, which states the kernel contract on
+job-major bitmaps; the round takes the same bits as vertex-major words
+(``chip_smoke.rows_to_words``, plain torch, independent of the
+package's packer). The CUDA kernel is held against the plain version on
+the card by chip_smoke.py."""
 
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke as cs
 
 import titan_tpu.models.bfs_hybrid as H
 import titan_tpu_torch.models.bfs_hybrid as PH
@@ -34,7 +38,9 @@ def _inputs(seed, K, C, Q, n_val, masked):
 
 
 def _run(fn, a, lanes, fill0, fill1):
+    """The round on ``a``, its job-major bitmaps given as words."""
     t = {k: None if v is None else torch.from_numpy(v) for k, v in a.items()}
+    t["fbits"] = cs.rows_to_words(t["fbits"], t["undec"].shape[0])
     return fn(t["cols"], t["undec"], t["has_more"], t["pay0"], t["pay1"],
               t["fbits"], t["tbits"], t["dstT"], lanes=lanes, fill0=fill0,
               fill1=fill1)
@@ -139,7 +145,8 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def _hit_any_whole(fbits, tbits, par, pcols):
-    """The plain round's former test: one [K, l, C] int32 word array."""
+    """The plain round's former test on job-major bitmaps: one
+    [K, l, C] int32 array."""
     nb = fbits.shape[1]
     byte = (par >> 3).clamp(0, nb - 1).long()
     w = fbits[:, byte].to(torch.int32)                   # (K, l, C)
@@ -153,12 +160,14 @@ def _hit_any_whole(fbits, tbits, par, pcols):
 
 
 def _round_bytes_whole(a, lanes):
-    """chip_smoke.round_bytes in its former whole form ([K, l, C]
-    temporaries and every bitmap offset listed)."""
+    """chip_smoke.round_bytes in a whole form ([K, l, C] temporaries and
+    every frontier offset listed, under both layouts), on job-major
+    bitmaps."""
     import chip_smoke as cs
     dstT, fb, tb, undec = a["dstT"], a["fbits"], a["tbits"], a["undec"]
     K, C = undec.shape
     Q, nb = dstT.shape[1], fb.shape[1]
+    plane = nb * 32                               # K = 40: Kp = 32
     col = a["cols"].long().clamp(0, Q - 1)
     j = torch.arange(C)
     live = undec.any(0)
@@ -168,14 +177,17 @@ def _round_bytes_whole(a, lanes):
     else:
         w = tb[col.clamp(max=tb.numel() - 1)].int()
         open_ = ((w[None] >> lane) & 1) == 0
-    fb_offsets = []
+    fb_offsets, word_offsets = [], []
 
     def test(l0, l1, want):
         par = dstT[l0:l1][:, col]
         byte = (par >> 3).long().clamp(0, nb - 1)
         tested = want[:, None, :] & open_[l0:l1][None]
-        kk = torch.arange(K)[:, None, None] * nb
-        fb_offsets.append((kk + byte[None]).expand_as(tested)[tested])
+        kk = torch.arange(K)[:, None, None]
+        fb_offsets.append((kk * nb + byte[None]).expand_as(tested)[tested])
+        word = par.long().clamp(0, plane // 4 - 1) * 4
+        word_offsets.append(((kk // 32) * plane + word[None])
+                            .expand_as(tested)[tested])
         bit = (fb[:, byte].int() >> (par & 7)[None]) & 1
         return (tested & (bit > 0)).any(1)
 
@@ -190,32 +202,44 @@ def _round_bytes_whole(a, lanes):
     dstT_8q = sum(sb(l * Q + col[live if l < lanes else wide], 4)
                   for l in range(8))
     dstT_q8 = sb(col[live], 32)
-    rest = (sb(j[live], 4) + K * C + sb(torch.cat(fb_offsets), 1)
+    fbits_rows = sb(torch.cat(fb_offsets), 1)
+    fbits_words = sb(torch.cat(word_offsets), 1)
+    rest = (sb(j[live], 4) + K * C
             + (0 if tb is None else sb(col[live], 1))
             + sb(j[out_miss], 1) + 2 * sb(j[surv], 4) + K * C + 8 * C + 4)
-    return {"bytes": rest + min(dstT_8q, dstT_q8), "bytes_8q": rest + dstT_8q,
-            "bytes_q8": rest + dstT_q8, "dstT_8q": dstT_8q,
-            "dstT_q8": dstT_q8, "live": int(live.sum()),
-            "nsur": int(surv.sum())}
+    d_min, f_min = min(dstT_8q, dstT_q8), min(fbits_rows, fbits_words)
+    return {"bytes": rest + d_min + f_min,
+            "bytes_8q": rest + dstT_8q + f_min,
+            "bytes_q8": rest + dstT_q8 + f_min,
+            "bytes_rows": rest + d_min + fbits_rows,
+            "bytes_words": rest + d_min + fbits_words,
+            "dstT_8q": dstT_8q, "dstT_q8": dstT_q8,
+            "fbits_rows": fbits_rows, "fbits_words": fbits_words,
+            "live": int(live.sum()), "nsur": int(surv.sum())}
 
 
 @pytest.mark.parametrize("lanes", [2, 8])
 @pytest.mark.parametrize("masked", [False, True])
 def test_job_by_job_forms_equal_the_whole_forms_at_k40(lanes, masked):
-    """At K = 40 (two of the kernel's job groups) the plain round's job-by-
-    job bitmap test equals the former [K, l, C] form, so the plain round's
-    outputs do not change, and chip_smoke.round_bytes, which marks the
-    bitmap sectors job by job, counts what its former whole form counted."""
-    import chip_smoke as cs
+    """At K = 40 (two of the kernel's job groups, two planes of words)
+    the plain round's plane-by-plane word test equals the former
+    [K, l, C] form on job-major bitmaps, so the plain round's outputs do
+    not change, and chip_smoke.round_bytes, which marks the frontier
+    sectors job by job and plane by plane, counts what its whole form
+    counts, given the bits in either layout."""
     a = _inputs(5, 40, 300, 97, 700, masked)
     a["fbits"][:, 3::5] = 0                  # some sectors no test touches
     t = {k: None if v is None else torch.from_numpy(v) for k, v in a.items()}
+    words = cs.rows_to_words(t["fbits"], 40)
     c = t["cols"].long().clamp(0, 96)
-    for l0, l1 in ((0, lanes), (lanes, 8), (0, 8)):
-        par = t["dstT"][l0:l1][:, c]
-        assert torch.equal(F._hit_any(t["fbits"], t["tbits"], par, c),
-                           _hit_any_whole(t["fbits"], t["tbits"], par, c))
+    for l1 in (lanes, 8):                    # the narrow test, the refetch
+        par = t["dstT"][:l1][:, c]
+        assert torch.equal(
+            F.job_bits(F._hit_words(words, t["tbits"], par, c, 32), 40),
+            _hit_any_whole(t["fbits"], t["tbits"], par, c))
     assert cs.round_bytes(t, lanes) == _round_bytes_whole(t, lanes)
+    assert cs.round_bytes({**t, "fbits": words}, lanes) \
+        == _round_bytes_whole(t, lanes)
     found, _, _, nsur = _run(F.frontier_round, a, lanes, -7, -9)
     assert found.shape == (40, 300)
     assert cs.round_bytes(t, lanes)["nsur"] == int(nsur)

@@ -1,7 +1,8 @@
 """Build a shared library from one source file at first use.
 
-The library is named by a hash of the source and the command, so an
-edited source is rebuilt and an unchanged one is reused. The compiler
+The library is named by a hash of the source, the headers it may
+include and the command, so an edited source or header is rebuilt and
+an unchanged one is reused. The compiler
 writes to a process-unique temporary name that is renamed into place,
 so concurrent builds never load a half-written file. A failed build
 raises with the compiler's stderr; nothing falls back.
@@ -22,13 +23,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 def build_shared(src: str, cmd: list[str], build_dir: str, name: str,
-                 timeout: float = 600.0) -> str:
+                 timeout: float = 600.0, headers: tuple = ()) -> str:
     """Compile ``src`` with ``cmd + ["-o", out, src]``; returns the path
-    of the library. The compiler's stderr (e.g. ``-Xptxas -v``) is kept
-    beside it as ``<library>.log``."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + "\0".join(cmd).encode()).hexdigest()[:16]
+    of the library. ``headers`` are the files it may include. The
+    compiler's stderr (e.g. ``-Xptxas -v``) is kept beside it as
+    ``<library>.log``."""
+    h = hashlib.sha256("\0".join(cmd).encode())
+    for path in (src, *sorted(headers)):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     out = os.path.join(build_dir, f"{name}_{digest}.so")
     if os.path.exists(out):
         return out
@@ -62,6 +66,11 @@ def nvcc() -> str:
 
 def build_cuda(name: str) -> str:
     """Build ``csrc/<name>.cu`` for sm_90a into a C-interface library
-    under ``_build/``; returns its path."""
-    return build_shared(os.path.join(_PKG, "csrc", f"{name}.cu"),
-                        [nvcc()] + NVCC_FLAGS, CUDA_BUILD_DIR, name)
+    under ``_build/``; returns its path. Every ``csrc/*.cuh`` counts as
+    one of its headers."""
+    csrc = os.path.join(_PKG, "csrc")
+    headers = tuple(os.path.join(csrc, f) for f in os.listdir(csrc)
+                    if f.endswith(".cuh"))
+    return build_shared(os.path.join(csrc, f"{name}.cu"),
+                        [nvcc()] + NVCC_FLAGS, CUDA_BUILD_DIR, name,
+                        headers=headers)

@@ -11,13 +11,17 @@
 //
 // What bounds it: bytes, most of them random. dstT is [8, Q] int32, so
 // each fetched lane entry of a random column is its own 32-byte sector (a
-// candidate's 8 lanes lie Q*4 bytes apart). The frontier bitmaps are n/8
-// bytes (8.4 MB at Graph500 scale 26) and stay in the 50 MB L2; the rest
-// is read or written once, coalesced. Each candidate's reads form a chain
-// (its column, then its parents, then their bitmap bytes, then the
-// refetch of the other lanes and their bytes), so the rate is set by how
-// many candidates the card keeps in flight and by the fixed latency each
-// tile adds, not by the memory's rate.
+// candidate's 8 lanes lie Q*4 bytes apart). The frontier is n/8 bytes
+// for one job (8.4 MB at Graph500 scale 26) and stays in the 50 MB L2;
+// K jobs' frontiers are vertex-major words (ops/frontier.py's module doc:
+// Kp bits a vertex in each plane of 32 jobs), 134 MB at K = 16, past the
+// L2, so a parent's test costs a sector, and the words make that one
+// sector for all the jobs of a plane instead of one a job. The rest is
+// read or written once, coalesced. Each candidate's reads form a chain
+// (its column, then its parents, then their words, then the refetch of
+// the other lanes and their words), so the rate is set by how many
+// candidates the card keeps in flight and by the fixed latency each tile
+// adds, not by the memory's rate.
 //
 // What the design does about it: one persistent pass, one launch.
 //
@@ -28,13 +32,14 @@
 //      candidates, and the gathers of rising, closely spaced columns (the
 //      opener's candidates, in vertex order) share sectors.
 //   2. A thread issues the narrow dstT loads of all its candidates before
-//      it tests any, then all their bitmap bytes, then the refetch of the
+//      it tests any, then all their parents' words (one load a parent for
+//      every job of a plane: hit |= word & want), then the refetch of the
 //      other lanes of every candidate that some undecided job missed,
-//      together. A candidate that no job still wants is not gathered.
-//      undec, the hits and the survivor flags stay in registers; found is
-//      written once. The round with one job (K = 1, the BFS main path) is
-//      its own instantiation, without the job loops: 48 registers a
-//      thread instead of 80, so five blocks fit on an SM instead of three.
+//      together, tested only for the jobs that missed (want & ~hit). A
+//      candidate that no job still wants is not gathered. undec, the hits
+//      and the survivor flags stay in registers; found is written once.
+//      The round with one job (K = 1, the BFS main path) is its own
+//      instantiation, without the job loops, its word a bit of a byte.
 //      Indices and columns are 32-bit (C < 2^31 and cols is int32); only
 //      the offsets of rows and lanes are 64-bit.
 //   3. Survivors are ranked in candidate order: a ballot per item and
@@ -60,8 +65,8 @@
 //      to nsur, each once, so the fills need neither nsur nor a second
 //      launch. The block that finishes the last tile writes nsur.
 //
-// Jobs go in groups of kJobs, one bit each in a 32-bit word; K > kJobs
-// runs the gathers once a group.
+// Jobs go in groups of kJobs, one plane of words each, one bit each in a
+// 32-bit word of wants and hits; K > kJobs runs the gathers once a group.
 //
 // Forward progress does not rely on the order in which blocks are
 // dispatched: a tile's ticket goes only to a running block, which
@@ -75,14 +80,17 @@
 // Offsets: dstT offsets (lane*Q + col), the rows of undec and found
 // (k*C + j) and the slots are 64-bit: at scale 26 Q is about 282M, so
 // lane*Q passes 2^31. Every gather is clamped into its array (cols to
-// [0, Q-1], bitmap bytes to [0, nb-1], the tombstone byte of slot
-// col*8 + lane, which is byte col, to [0, tb-1]), as the plain version
-// clamps them: an out-of-range read must never fault the context.
+// [0, Q-1], a parent's word into its plane as word_of says, the
+// tombstone byte of slot col*8 + lane, which is byte col, to [0, tb-1]),
+// as the plain version clamps them: an out-of-range read must never
+// fault the context.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <atomic>
+
+#include "frontier_words.cuh"
 
 namespace {
 
@@ -99,10 +107,6 @@ constexpr uint32_t kInvalid = 0;     // not published yet (zeroed scratch)
 constexpr uint32_t kAggregate = 1;   // the tile's own survivor count
 constexpr uint32_t kPrefix = 2;      // the survivors up to the tile's end
 
-__device__ __forceinline__ int64_t clamp64(int64_t v, int64_t lo,
-                                           int64_t hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
 __device__ __forceinline__ uint64_t status_word(uint32_t state,
                                                 uint32_t count) {
   return (uint64_t(state) << 32) | count;
@@ -156,8 +160,9 @@ struct Args {
   const uint8_t* __restrict__ fbits;
   const uint8_t* __restrict__ tbits;
   const int32_t* __restrict__ dstT;
-  int64_t C, Q, nb, tb;
+  int64_t C, Q, nb, tb;  // nb: the bytes of one plane of words
   int K;
+  int kp_log;             // log2 of Kp, the bits a vertex in a plane
   int32_t fill0, fill1;
   uint8_t* __restrict__ found;
   int32_t* __restrict__ out0;
@@ -167,30 +172,23 @@ struct Args {
   unsigned* __restrict__ ticket;
 };
 
-// hit bit k for each job k set in `jobs` whose bitmap (fbits + k*nb)
-// holds a parent in lanes [l0, l1) that the tombstones leave open. Every
-// byte of one job is loaded before any is tested. kOne: K = 1, jobs = 1.
+// The jobs of `want` that some parent in lanes [l0, l1), open under the
+// tombstones, holds in the plane: one word load a parent, all of them
+// issued before any is tested. kOne: K = 1, Kp = 1 at compile time.
 template <int l0, int l1, bool kOne>
-__device__ __forceinline__ uint32_t hits(const uint8_t* __restrict__ fbits,
-                                         int64_t nb, const int32_t* par,
-                                         uint32_t open, uint32_t jobs) {
-  uint32_t h = 0;
-  for (uint32_t m = jobs; m; m = kOne ? 0u : m & (m - 1)) {
-    const int k = kOne ? 0 : __ffs(m) - 1;
-    const uint8_t* fb = fbits + k * nb;
-    uint32_t w[l1 - l0];
+__device__ __forceinline__ uint32_t hits(const uint8_t* __restrict__ plane,
+                                         int64_t nb, int kp_log,
+                                         const int32_t* par, uint32_t open,
+                                         uint32_t want) {
+  uint32_t w[l1 - l0];
 #pragma unroll
-    for (int l = l0; l < l1; ++l)
-      w[l - l0] = (open >> l) & 1u
-                      ? uint32_t(__ldg(fb + clamp64(par[l] >> 3, 0, nb - 1)))
-                            >> (par[l] & 7)
-                      : 0u;
-    uint32_t any = 0;
+  for (int l = l0; l < l1; ++l)
+    w[l - l0] = (open >> l) & 1u
+                    ? word_of(plane, nb, kOne ? 0 : kp_log, par[l]) : 0u;
+  uint32_t any = 0;
 #pragma unroll
-    for (int l = 0; l < l1 - l0; ++l) any |= w[l];
-    h |= (any & 1u) << k;
-  }
-  return h;
+  for (int l = 0; l < l1 - l0; ++l) any |= w[l];
+  return any & want;
 }
 
 // The coalesced inputs of the thread's kItems candidates of a tile
@@ -244,7 +242,7 @@ __device__ unsigned test_items(const Args& a, int64_t j0, const Staged& st) {
   const int K = kOne ? 1 : a.K;
   for (int g = 0; g < K; g += kJobs) {
     const int kn = kOne ? 1 : (K - g < kJobs ? K - g : kJobs);
-    const uint8_t* fbits = a.fbits + int64_t(g) * a.nb;
+    const uint8_t* plane = a.fbits + int64_t(g / kJobs) * a.nb;
     uint32_t want[kItems], hit[kItems];
     int32_t par[kItems][8];
 #pragma unroll
@@ -265,7 +263,8 @@ __device__ unsigned test_items(const Args& a, int64_t j0, const Staged& st) {
 #pragma unroll
     for (int r = 0; r < kItems; ++r)
       if (want[r])
-        hit[r] = hits<0, kLanes, kOne>(fbits, a.nb, par[r], open[r], want[r]);
+        hit[r] = hits<0, kLanes, kOne>(plane, a.nb, a.kp_log, par[r],
+                                       open[r], want[r]);
     if constexpr (kLanes < 8) {
       // the wide refetch, only for the jobs that missed the narrow lanes
       uint32_t need[kItems];
@@ -279,8 +278,8 @@ __device__ unsigned test_items(const Args& a, int64_t j0, const Staged& st) {
 #pragma unroll
       for (int r = 0; r < kItems; ++r)
         if (need[r])
-          hit[r] |= hits<kLanes, 8, kOne>(fbits, a.nb, par[r], open[r],
-                                          need[r]);
+          hit[r] |= hits<kLanes, 8, kOne>(plane, a.nb, a.kp_log, par[r],
+                                          open[r], need[r]);
     }
     uint8_t* found = a.found + int64_t(g) * a.C + j0;
 #pragma unroll
@@ -445,9 +444,10 @@ extern "C" {
 int tt_frontier_round_tile(void) { return kTile; }
 
 // Enqueues the round on `stream` (one launch; at C = 0 a memset of nsur
-// instead); returns its cudaError_t. Scratch: ceil(C /
-// tt_frontier_round_tile()) + 1 64-bit words, zeroed before every call
-// (the tile statuses, then the ticket counter).
+// instead); returns its cudaError_t. fbits: ceil(K / 32) planes of nb
+// bytes of words, Kp = min(next_pow2(K), 32) bits a vertex. Scratch:
+// ceil(C / tt_frontier_round_tile()) + 1 64-bit words, zeroed before
+// every call (the tile statuses, then the ticket counter).
 int tt_frontier_round(const int32_t* cols, const uint8_t* undec,
                       const uint8_t* has_more, const int32_t* pay0,
                       const int32_t* pay1, const uint8_t* fbits,
@@ -456,7 +456,11 @@ int tt_frontier_round(const int32_t* cols, const uint8_t* undec,
                       int fill0, int fill1, uint8_t* found, int32_t* out0,
                       int32_t* out1, int32_t* nsur, void* scratch,
                       void* stream) {
+  const int kp_log = word_log2(K);
+  const int64_t word_bytes = kp_log >= 3 ? int64_t(1) << (kp_log - 3) : 1;
   if (C < 0 || C >= (int64_t(1) << 31) || K < 1 || Q < 1 || nb < 1 ||
+      nb % word_bytes != 0 ||
+      reinterpret_cast<uintptr_t>(fbits) % word_bytes != 0 ||
       (tbits != nullptr && tb < 1) || (lanes != 2 && lanes != 8))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -464,8 +468,8 @@ int tt_frontier_round(const int32_t* cols, const uint8_t* undec,
   const int64_t ntiles = (C + kTile - 1) / kTile;
   uint64_t* status = static_cast<uint64_t*>(scratch);
   const Args a{cols, undec, has_more, pay0, pay1, fbits, tbits, dstT,
-               C, Q, nb, tb, K, fill0, fill1, found, out0, out1, nsur,
-               status, reinterpret_cast<unsigned*>(status + ntiles)};
+               C, Q, nb, tb, K, kp_log, fill0, fill1, found, out0, out1,
+               nsur, status, reinterpret_cast<unsigned*>(status + ntiles)};
   if (K == 1)
     return lanes == 2 ? launch<2, true>(a, st) : launch<8, true>(a, st);
   return lanes == 2 ? launch<2, false>(a, st) : launch<8, false>(a, st);

@@ -42,7 +42,9 @@ from titan_tpu_torch.device import INF, next_pow2, resolve_device
 from titan_tpu_torch.ops.compaction import (CLAIM_SENTINEL, claim_dedup,
                                             claim_reset, compact_ids,
                                             scatter_compact)
-from titan_tpu_torch.ops.frontier import frontier_round
+from titan_tpu_torch.ops.frontier import (batched_exhaust, frontier_round,
+                                          job_bits, plane_bytes, word_bits,
+                                          words_at)
 
 # mode-switch thresholds (Beamer-style), identical to the JAX package:
 # td->bu when the frontier's chunked edge mass exceeds 1/ALPHA of the
@@ -473,59 +475,58 @@ def frontier_bfs_hybrid(snap, source_dense: int, max_levels: int = 1000,
 # widened to [K, n+2]: the per-level n-scale plan (candidate compaction and
 # the per-job frontier counts) runs once for all K jobs, and every
 # edge-chunk gather from dstT is read once and tested against all K
-# frontier bitmaps inside frontier_round. The sweep is bottom-up only
+# frontiers inside frontier_round. The sweep is bottom-up only
 # (level-synchronous pull over the shared candidate list); BFS distances
 # are canonical, so row k is bit-equal to a single-source run from
 # sources[k]. SYMMETRIC graphs only (module contract above).
+#
+# The K frontiers are vertex-major words (ops/frontier.py's module doc):
+# Kp = min(next_pow2(K), 32) bits a vertex in each plane of 32 jobs, so a
+# parent's test loads one word for all the jobs of a plane. At K = 1 they
+# are the single-source bitmap. They never leave frontier_bfs_batched.
 #
 # Pads, as in the single-source path: dist is [K, n+2]; column n is never
 # written and stays INF in both modes (dead candidates read it through
 # the clamp v = min(cand, n)); column n+1 is a spare that absorbs the
 # scatters JAX drops (its [K, n+1] dist has no column n+1). Nothing reads
-# the spare: the bitmaps and the plan look at the first n+1 and n columns.
-
-#: exhaust pairs a slice: the [K, 8, slice] bitmap test stays at 512 MB for
-#: K = 16 however many chunks the stragglers have left
-EXHAUST_SLICE = 1 << 22
+# the spare: the words and the plan look at the first n+1 and n columns.
 
 
 def _pack_bits_batched(dist, active, level: int, n_: int):
-    """[K, nbytes] frontier bitmaps, ``nbytes = (n_+2+7)//8``: bit v of
-    row k = (dist[k, v] == level and job k is active), little-endian
-    within bytes, the bits past n_ zero. An inactive job gets an all-zero
-    row, so no hit test can find anything for it. Packed with uint8
-    shifts over a [K, nbytes, 8] view: no int32 temporary."""
-    K = dist.shape[0]
-    nbytes = (n_ + 2 + 7) // 8
-    mask = torch.zeros((K, nbytes * 8), dtype=torch.bool, device=dist.device)
-    torch.logical_and(dist[:, :n_ + 1] == level, active[:, None],
-                      out=mask[:, :n_ + 1])
-    m = mask.view(K, nbytes, 8).to(torch.uint8)
-    out = m[:, :, 0].clone()
-    for b in range(1, 8):
-        out |= m[:, :, b] << b
+    """[G, plane_bytes(n_+2, K)] uint8 frontier words: bit k of vertex v
+    in plane g = (dist[g*32 + k, v] == level and the job is active), the
+    bits past n_ zero. An inactive job's bits are all zero, so no hit test
+    can find anything for it. K shift-OR passes into an int32 word a
+    vertex, plane by plane: no [K, n] int temporary."""
+    K, dev = dist.shape[0], dist.device
+    Kp, G = word_bits(K)
+    nb = plane_bytes(n_ + 2, K)
+    nv = nb * 8 // Kp                    # vertex slots in a plane, >= n_+2
+    out = torch.empty((G, nb), dtype=torch.uint8, device=dev)
+    for g in range(G):
+        w = torch.zeros(nv, dtype=torch.int32, device=dev)
+        for k in range(32 * g, min(K, 32 * g + 32)):
+            w[:n_ + 1] |= ((dist[k, :n_ + 1] == level) & active[k]) \
+                .to(torch.int32) << (k - 32 * g)
+        if Kp >= 8:                      # little-endian: the low Kp/8 bytes
+            out[g] = w.view(torch.uint8).view(nv, 4)[:, :Kp // 8].flatten()
+        else:                            # 8/Kp vertices a byte
+            sh = torch.arange(8 // Kp, dtype=torch.int32, device=dev) * Kp
+            out[g] = (w.view(nb, 8 // Kp) << sh).sum(1).to(torch.uint8)
     return out
 
 
-def _bit_of_batched(fbits, idx):
-    """Test all K bitmaps at shared int32 indices: fbits [K, nbytes], idx
-    [...] -> bool [K, *idx.shape]. Byte indices clamp into the bitmap, as
-    JAX's gather does; the temporaries stay uint8."""
-    byte = (idx >> 3).clamp(0, fbits.shape[1] - 1).long()
-    return ((fbits[:, byte] >> (idx & 7).to(torch.uint8)) & 1) > 0
-
-
-def _slot_open(tbits, cols):
-    """[8, P] bool: slot ``col*8 + lane`` is not set in the slot bitmap
-    ``tbits`` (byte = column, bit = lane; the byte clamped into range)."""
-    byte = cols.long().clamp(0, tbits.shape[0] - 1)
-    lane = torch.arange(8, dtype=torch.uint8, device=cols.device)[:, None]
-    return ((tbits[byte][None, :] >> lane) & 1) == 0
+def _bit_of_batched(fbits, idx, K: int):
+    """Test all K jobs' words at shared int32 indices: fbits [G, nb], idx
+    [...] -> bool [K, *idx.shape]. Indices clamp into the planes as the
+    kernels clamp them (``ops.frontier.words_at``)."""
+    Kp, _ = word_bits(K)
+    return job_bits(torch.stack([words_at(p, idx, Kp) for p in fbits]), K)
 
 
 def _batched_plan(dist, active, level: int, degc, c_cap: int, n_: int,
                   expand: bool = False):
-    """ONE n-scale pass serving all K jobs: the per-job frontier bitmaps,
+    """ONE n-scale pass serving all K jobs: the K jobs' frontier words,
     the SHARED candidate list (vertices unvisited in ANY active job, deg
     > 0; with ``expand``, hops mode, every vertex of deg > 0 while some
     job is active: the sweep then computes the exact next-hop set, so
@@ -561,25 +562,25 @@ def _stamp(gd, found, level: int, expand: bool):
 
 
 def _batched_rounds(dist, fbits, cand, off, c_count, level: int, g,
-                    tbits, fuse: int, expand: bool):
+                    tbits, fuse: int, expand: bool, live):
     """``fuse`` chunk rounds over the shared candidate list, each one
     ``frontier_round`` at K jobs: chunk ``off`` of each candidate is
-    gathered once and tested against all K bitmaps (slots set in
+    gathered once and tested against all K frontiers (slots set in
     ``tbits`` masked: the overlay's tombstones or a level's label mask);
     finds are stamped into dist; a candidate survives while it has chunks
     left and some job still has it undecided. In hops mode a candidate is
-    undecided for every LIVE job (nonzero bitmap: a deactivated or pad row
+    undecided for every LIVE job (``live`` [K, 1] bool, None in BFS
+    mode: a nonzero frontier count in the plan; a deactivated or pad row
     must never pin candidates through all their chunks) that has not
-    stamped it this level. The survivor count stays on the device between
-    rounds (``fuse`` >= 1, so the count returned is the kernel's).
-    Returns ``(cand, off, prog)``, ``prog`` = [survivors, their remaining
-    chunk mass] (int32). The one [K, C] int32 temporary is the
-    dist gather; the rest are bool."""
+    stamped it this level. The survivor count stays on the device
+    between rounds (``fuse`` >= 1, so the count returned is the
+    kernel's). Returns ``(cand, off, prog)``, ``prog`` = [survivors,
+    their remaining chunk mass] (int32). The one [K, C] int32 temporary
+    is the dist gather; the rest are bool."""
     n_ = g["n"]
     dstT, colstart, degc = g["dstT"], g["colstart"], g["degc"]
     q_pad = dstT.shape[1] - 1
     slots = torch.arange(cand.shape[0], device=dist.device)
-    live = (fbits != 0).any(dim=1)[:, None] if expand else None
     for _ in range(fuse):
         alive = slots < c_count
         v = cand.clamp(max=n_).long()
@@ -602,35 +603,13 @@ def _batched_rounds(dist, fbits, cand, off, c_count, level: int, g,
     return cand, off, torch.stack([c_count, rem])
 
 
-def _found_per_batched(fbits, tbits, dstT, cols, owner, p_total,
-                       c_cap: int):
-    """[K, c_cap] bool: some pair of the candidate hits job k's bitmap.
-    The pairs go in slices of ``EXHAUST_SLICE``; each slice's hits fold
-    into the per-candidate result with an ``amax`` by owner (dead pairs
-    go to the last candidate with their 0). The fold is order-free, so
-    the result does not depend on the slicing."""
-    K, P = fbits.shape[0], cols.shape[0]
-    acc = torch.zeros((K, c_cap), dtype=torch.int32, device=fbits.device)
-    for s0 in range(0, P, EXHAUST_SLICE):
-        s1 = min(s0 + EXHAUST_SLICE, P)
-        c = cols[s0:s1]
-        hitl = _bit_of_batched(fbits, dstT[:, c.long()])  # [K, 8, S]
-        if tbits is not None:
-            hitl &= _slot_open(tbits, c)[None]
-        j = torch.arange(s0, s1, device=cols.device)
-        own = torch.where(j < p_total, owner[s0:s1], c_cap - 1).long()
-        acc.scatter_reduce_(1, own[None, :].expand(K, -1),
-                            hitl.any(dim=1).to(torch.int32), reduce="amax")
-        del hitl
-    return acc > 0
-
-
 def _batched_exhaust(dist, fbits, cand, off, c_count: int, level: int, g,
                      tbits, p_cap: int, expand: bool):
     """One sweep over ALL remaining chunks of the surviving candidates
-    (hub stragglers), per-job any-hit through the shared owner fold; slots
-    set in ``tbits`` never hit. Hops mode stamps every found candidate
-    (no undecided mask), as the JAX package does."""
+    (hub stragglers), per-job any-hit folded by candidate
+    (``ops.frontier.batched_exhaust``); slots set in ``tbits`` never hit.
+    Hops mode stamps every found candidate (no undecided mask), as the
+    JAX package does."""
     n_ = g["n"]
     dstT, colstart, degc = g["dstT"], g["colstart"], g["degc"]
     c_cap = cand.shape[0]
@@ -640,8 +619,8 @@ def _batched_exhaust(dist, fbits, cand, off, c_count: int, level: int, g,
     cols, p_total, owner = enumerate_chunk_pairs(
         valid, rem, colstart[v] + off, p_cap, dstT.shape[1] - 1,
         with_owner=True)
-    found = _found_per_batched(fbits, tbits, dstT, cols, owner, p_total,
-                               c_cap) & valid
+    found = batched_exhaust(cols, owner, p_total, fbits, tbits, dstT,
+                            K=dist.shape[0], c_cap=c_cap) & valid
     del cols, owner
     gd = dist[:, v]
     if not expand:
@@ -653,11 +632,11 @@ def _batched_exhaust(dist, fbits, cand, off, c_count: int, level: int, g,
 def _overlay_scatter_batched(dist, fbits, ov_src, ov_dst, level: int,
                              n_: int, expand: bool = False):
     """The overlay's added edges, top-down: for every live add (u, v),
-    the jobs whose frontier bitmap holds u scatter level+1 into v (min in
-    BFS mode, max in hops mode, as the base sweep stamps). Pad entries
-    (n_+1) miss every bitmap and land in the spare column."""
+    the jobs whose frontier holds u scatter level+1 into v (min in BFS
+    mode, max in hops mode, as the base sweep stamps). Pad entries (n_+1)
+    miss every job and land in the spare column."""
     K = dist.shape[0]
-    hit = _bit_of_batched(fbits, ov_src)                 # [K, cap]
+    hit = _bit_of_batched(fbits, ov_src, K)              # [K, cap]
     idx = ov_dst.long().clamp(0, n_ + 1)[None, :].expand(K, -1)
     if expand:
         msg = torch.where(hit, level + 1, 0).to(torch.int32)
@@ -824,20 +803,23 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
             checkpoint(level, dist[:, :n + 1].clone(), act_h.copy())
         if mask_changed:
             # deactivated jobs must stop influencing the sweep: re-plan
-            # with the new mask, which zeroes their bitmap rows and drops
+            # with the new mask, which zeroes their frontier bits and drops
             # their unvisited sets from the shared candidate list
             active = torch.from_numpy(act_h).to(dist.device)
             fbits, cand, stats = _batched_plan(dist, active, level, degc,
                                                cap_n, n, expand)
             st = stats.tolist()
         if scatter_adds:
-            # overlay adds expand top-down off the level's final bitmaps,
+            # overlay adds expand top-down off the level's final words,
             # independent of the base sweep below (both stamp level+1 by
             # the same reduction, so the order does not matter); it runs
             # even when the base candidate list is empty
             _overlay_scatter_batched(dist, fbits, ov.src_dev, ov.dst_dev,
                                      level, n, expand)
         c_count = int(st[0])
+        # hops mode: the jobs with a frontier this level, from the plan's
+        # per-job counts on the device (column n_ is never == level)
+        live = (stats[1:] > 0)[:, None] if expand else None
         # a level's label mask rides the tbits seam of the tombstones
         tb_l = tbits
         if level_masks is not None:
@@ -854,7 +836,7 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
             fuse = BU_CHUNK_ROUNDS - rounds
             cand, off, prog = _batched_rounds(
                 dist, fbits, cand[:c_cap2], off[:c_cap2], c_count, level, g,
-                tb_l, fuse, expand)
+                tb_l, fuse, expand, live)
             c_count, rem8 = prog.tolist()
             rounds += fuse
         if c_count > 0:

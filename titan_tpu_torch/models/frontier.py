@@ -39,7 +39,7 @@ hand:
   one fused multiply-add; the port rounds once through float64, which
   gives the same float32 (``_hash_weight_expr``).
 * Tombstones are tested by byte = column, bit = lane
-  (``models/bfs_hybrid._slot_open``), never through an int32 slot id.
+  (``ops/frontier.slot_open``), never through an int32 slot id.
 * Counts stay int32; the listed-mass cumsum runs in int64
   (``ops/compaction.banded_frontier``) and flags what JAX's int32 wrap
   flags.
@@ -56,10 +56,11 @@ import numpy as np
 import torch
 
 from titan_tpu_torch.device import INF, next_pow2, resolve_device
-from titan_tpu_torch.models.bfs_hybrid import (_slot_open, build_chunked_csr,
+from titan_tpu_torch.models.bfs_hybrid import (build_chunked_csr,
                                                enumerate_chunk_pairs,
                                                frontier_bfs_hybrid)
 from titan_tpu_torch.ops.compaction import banded_frontier
+from titan_tpu_torch.ops.frontier import slot_open
 
 FINF = np.float32(3.0e38)
 IINF = np.int32(1 << 30)
@@ -311,7 +312,7 @@ def _push_list(kind: str, val, val_exp, flist, bounds, i: int, thr, dstT,
     nbr = dstT[:, cl]                                    # [8, p_cap]
     if tbits is not None:
         # live-overlay tombstones: a dead base slot relaxes nothing
-        nbr = torch.where(_slot_open(tbits, cols), nbr, n_ + 1)
+        nbr = torch.where(slot_open(tbits, cols), nbr, n_ + 1)
     if kind == "sssp":
         lane = torch.arange(8, dtype=torch.int64, device=dev)[:, None]
         msg = src_val[None, :] + _hash_weight_expr(cl[None, :] * 8 + lane,

@@ -39,7 +39,12 @@ Phases, each of which raises on failure:
    its own segment, and ``flags[0]`` False. Exact except float32 sums
    (``FLOAT_SUM_RTOL``). Then ``REPEATS`` back-to-back float32 sums of
    the one-segment and the hub inputs, each run bit-equal to the first
-   (stale statuses and look-back races would show here);
+   (stale statuses and look-back races would show here). Then the K-row
+   launch: K in ``ROW_KS``, E below a tile, odd, 2 mod 4 and 2 mod 4
+   with hub-like starts, the row stride ld = E and padded to 4, every
+   type and combine; every row bit-equal to the one-row launch on that
+   row and the whole to the plain version; ``REPEATS`` back-to-back
+   K = 16 launches bit-equal to the first;
 4. at Graph500 scale 16, the port's BFS on the card equals the port's
    BFS on the CPU (plain path), and ``frontier_round`` was launched;
 5. the vertex-program engine's main path at Graph500 scale 22, edge
@@ -53,7 +58,19 @@ Phases, each of which raises on failure:
    against its plain version, its byte bound and
    ``torch.segment_reduce``, beside an int32 ``min`` at the same flags
    and a plain ``copy_`` of the messages; and the superstep's parts are
-   timed;
+   timed. Phase 5b, on the same snapshot: ``GPUGraphComputer.run_batched``
+   of K = 16 BFS sources (bench.py's rule), each row's dist and
+   iterations equal to ``GPUGraphComputer.run`` and dist to
+   ``frontier_bfs_hybrid``, and of K = 4 PageRank jobs, each row
+   bit-equal to the single run; walls, peak memory, launches, and each
+   batch's widest K-row scan replayed (``row_scan_replay``: rows against
+   the one-row launch and the plain version, the two byte bounds, and
+   ``torch.segment_reduce`` over the rows for float32). Phase 5c:
+   PageRank checkpointed every ``CKPT_EVERY`` supersteps, bit-equal to
+   the run without checkpoints; rounds 15 and 20 removed and resumed,
+   round 10 corrupted and resumed from 5 (``latest`` falls back), both
+   bit-equal; a classic MapReduce (an in-degree histogram over the
+   vertex views) against numpy;
 6. the BFS main path at the full scale: native R-MAT host build, upload,
    direction-optimizing BFS from sources sampled by bench.py's rule (one
    warm-up run, best of 3 per source), TEPS as bench.py computes it, and
@@ -103,7 +120,8 @@ Phases, each of which raises on failure:
 
 The line before the last is the ``{"kernels": [...]}`` record of the
 three kernels (each record's ``launches`` sums its paths, listed under
-``launches_by_path``); the last
+``launches_by_path``; ``seg_scan``'s ``rows`` holds phase 5b's two
+K-row replays); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits 1 and prints no result.
 """
@@ -695,6 +713,72 @@ def phase_seg_scan_cases(S) -> None:
         f"call of each case")
 
 
+#: the K-row scan's cases: K jobs, E below a tile, odd across tiles,
+#: E = 2 mod 4 (the s22 engine's: its odd rows start 8 bytes off 16 when
+#: ld = E), and the hub-like starts over E = 2 mod 4
+ROW_KS = (1, 3, 16)
+
+
+def row_inputs(gen, k: int, e: int, ld: int, dtype, density, tile: int):
+    """K rows of random scan inputs ([k, ld]; columns past E hold values
+    the scan must not read) under one flag array [E]."""
+    values, _ = seg_inputs(gen, k * ld, dtype, 0.0)
+    _, flags = seg_inputs(gen, e, dtype, density, True, tile)
+    return values.view(k, ld), flags
+
+
+def phase_seg_scan_rows(S) -> None:
+    """The K-row launch: every row bit-equal to the one-row launch on that
+    row (a contiguous copy, so 16-byte aligned), the whole against the
+    plain version (exact, float32 sums within FLOAT_SUM_RTOL); then
+    REPEATS back-to-back launches of the largest hub case, each bit-equal
+    to the first."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    tile = S.kernel_library().tt_seg_scan_tile()
+    shapes = [(70, 0.2, "below a tile"), (5 * tile + 1, 0.01, "odd"),
+              ((1 << 20) + 2, 1e-3, "2 mod 4"),
+              ((1 << 22) + 2, "hubs", "2 mod 4, hub-like starts")]
+    launches0 = S.seg_scan.launches
+    n_cases = 0
+    for k in ROW_KS:
+        for e, density, what in shapes:
+            for ld in (e, e + 4 - e % 4):
+                for dtype in (torch.float32, torch.int32):
+                    for combine in S.COMBINES:
+                        values, flags = row_inputs(gen, k, e, ld, dtype,
+                                                   density, tile)
+                        got = S.seg_scan(values, flags, combine)
+                        check(tuple(got.shape) == (k, e),
+                              f"K-row seg_scan shape {tuple(got.shape)}")
+                        for r in range(k):
+                            one = S.seg_scan(values[r, :e].contiguous(),
+                                             flags, combine)
+                            check(torch.equal(got[r], one),
+                                  f"K-row seg_scan {combine} {dtype} K={k} "
+                                  f"E={e} ld={ld} ({what}): row {r} differs "
+                                  "from the one-row launch")
+                        ref = S.seg_scan_reference(values, flags, combine)
+                        scan_error(S, got, ref, values[:, :e], flags,
+                                   combine)
+                        n_cases += 1
+                        del values, flags, got, ref
+    e = shapes[-1][0]
+    values, flags = row_inputs(gen, ROW_KS[-1], e, e, torch.float32,
+                               "hubs", tile)
+    runs = [S.seg_scan(values, flags, "sum") for _ in range(REPEATS)]
+    same = sum(torch.equal(r, runs[0]) for r in runs)
+    check(same == REPEATS, "back-to-back K-row seg_scan runs differ")
+    del values, flags, runs
+    torch.cuda.empty_cache()
+    say(f"phase 3: K-row seg_scan (K in {ROW_KS}, E in "
+        f"{[sh[0] for sh in shapes]}, ld = E and padded to 4, both types, "
+        f"every combine): {n_cases}/{n_cases} cases, every row bit-equal to "
+        f"the one-row launch and the whole to the plain version (float32 "
+        f"sums within {FLOAT_SUM_RTOL:g}); {same}/{REPEATS} back-to-back "
+        f"K={ROW_KS[-1]} float32 sums over E={e} (hubs) bit-equal to the "
+        f"first; {S.seg_scan.launches - launches0} launches")
+
+
 def sample_sources(deg, k: int):
     """bench.py's rule: distinct sources of degree > 0, default_rng(12345)."""
     rng = np.random.default_rng(12345)
@@ -964,6 +1048,272 @@ def phase_engine(S, P, G, ref, card) -> dict:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": "bytes", "library_ms": rec["library_ms"]}, \
         pr_s / pr.iterations
+
+
+#: the batched PageRank of phase 5b
+PR_BATCH = 4
+#: the checkpoint cadence of phase 5c's 20-superstep PageRank
+CKPT_EVERY = 5
+
+
+def row_scan_replay(S, values, flags, combine: str, deg=None) -> dict:
+    """The widest K-row call of a batched run, ``values`` [K, ld]: every
+    row bit-equal to the one-row launch, the plain version row by row
+    (exact, float32 sums within FLOAT_SUM_RTOL), times, the two byte
+    bounds (flags read once; flags read again for each row, since 50 MB
+    of L2 cannot keep them), and, for float32 (``deg`` given),
+    torch.segment_reduce over the K rows (axis 1) timed beside the scan.
+    torch.segment_reduce takes no int32, so the int32 call has none."""
+    k, e = values.shape[0], flags.shape[0]
+    got = S.seg_scan(values, flags, combine)
+    err = 0.0
+    for r in range(k):
+        row = values[r, :e].contiguous()
+        check(torch.equal(got[r], S.seg_scan(row, flags, combine)),
+              f"K-row seg_scan row {r} differs from the one-row launch")
+        err = max(err, scan_error(S, got[r], S.seg_scan_reference(
+            row, flags, combine), row, flags, combine))
+        del row
+    del got
+    ms = cuda_ms(lambda: S.seg_scan(values, flags, combine), 10, warmup=2)
+    plain_ms = cuda_ms(lambda: [S.seg_scan_reference(values[r, :e], flags,
+                                                     combine)
+                                for r in range(k)], 1)
+    size = values.element_size()
+    nbytes = 2 * size * k * e + e
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    reread_ms = (2 * size + 1) * k * e / HBM_BYTES_PER_S * 1e3
+    rec = {"K": k, "E": e, "ld": values.shape[1],
+           "dtype": str(values.dtype)[6:], "combine": combine,
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bytes": nbytes, "bound_ms": bound_ms, "share": bound_ms / ms,
+           "bound_ms_flags_per_row": reread_ms,
+           "share_flags_per_row": reread_ms / ms, "library_ms": None}
+    if deg is not None:
+        data = values[:, :e].contiguous()
+        lengths = torch.from_numpy(np.tile(deg.astype(np.int64),
+                                           (k, 1))).cuda()
+
+        def library():
+            return torch.segment_reduce(data, combine, lengths=lengths,
+                                        axis=1, unsafe=True)
+        lib = library()
+        check(lib.shape == (k, deg.shape[0]), "segment_reduce shape")
+        rec["library_ms"] = cuda_ms(library, 5, warmup=1)
+        del data, lengths, lib
+    return rec
+
+
+def say_rows(name: str, r: dict, card: str) -> None:
+    say(f"phase 5b: widest K-row seg_scan of the {name} (K={r['K']}, "
+        f"E={r['E']}, ld={r['ld']}, {r['dtype']} {r['combine']}) on {card}: "
+        f"every row bit-equal to the one-row launch, max_abs_err against "
+        f"the plain version {r['max_abs_err']:.3g}; kernel {r['ms']:.4f} "
+        f"ms (mean of 10), plain {r['plain_ms']:.4f} ms; bound "
+        f"{r['bound_ms']:.4f} ms ({r['bytes']} bytes at 3.35 TB/s, flags "
+        f"once), {100 * r['share']:.1f}% of it; with the flags read again "
+        f"for each row {r['bound_ms_flags_per_row']:.4f} ms, "
+        f"{100 * r['share_flags_per_row']:.1f}%; torch.segment_reduce "
+        f"(axis 1) " + ("takes no int32" if r["library_ms"] is None
+                        else f"{r['library_ms']:.4f} ms"))
+
+
+def phase_engine_batched(S, P, G, ref, card) -> dict:
+    """Phase 5b on phase 5's s22 snapshot: GPUGraphComputer.run_batched
+    for K = 16 BFS sources (bench.py's rule), each row's dist and
+    iterations equal to GPUGraphComputer.run from that source and dist
+    equal to frontier_bfs_hybrid; K = 4 PageRank jobs, each row bit-equal
+    to the single run's ranks; the walls, the peak memory, the launches
+    and the widest K-row scan of each replayed against its bounds."""
+    from titan_tpu_torch.models import bfs as MB
+    from titan_tpu_torch.models import pagerank as MP
+    from titan_tpu_torch.olap import engine as E
+
+    hg, snap = ref["hg"], ref["snap"]
+    comp = E.GPUGraphComputer(snapshot=snap)
+    n = snap.n
+    srcs = sample_sources(hg["deg"], BATCH_K)
+    real, captured = E.sorted_segment_combine, {}
+
+    def capture(values, *args, **kw):     # the run's [K, ld] messages
+        captured["values"] = values
+        return real(values, *args, **kw)
+
+    # ---- the main path: the batched BFS, counts from 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    S.seg_scan.launches = 0
+    E.sorted_segment_combine = capture
+    try:
+        bres, bfs_s = wall_s(lambda: comp.run_batched(
+            MB.BFS(), [{"source_dense": s} for s in srcs]))
+    finally:
+        E.sorted_segment_combine = real
+    launches_bfs = S.seg_scan.launches
+    # ---- end of the main path
+    check(launches_bfs > 0, "the batched BFS never launched seg_scan")
+    bfs_peak = torch.cuda.max_memory_allocated()
+    singles, singles_s = wall_s(lambda: [MB.run(comp, s, snapshot=snap)
+                                         for s in srcs])
+    g500 = G.graph_from_numpy(hg, "cuda")
+    for s, b, one in zip(srcs, bres, singles):
+        check(b.iterations == one.iterations and np.array_equal(
+            b["dist"], one["dist"]), f"batched BFS row of source {s} "
+              "differs from GPUGraphComputer.run")
+        dist, _ = P.frontier_bfs_hybrid(g500, s)
+        check(np.array_equal(b["dist"], dist), f"batched BFS row of source "
+              f"{s} differs from frontier_bfs_hybrid")
+    del g500
+    say(f"phase 5b: s{ENGINE_SCALE} run_batched(BFS, K={BATCH_K}) on "
+        f"{card}: {bfs_s:.4f} s wall (the {BATCH_K} single runs "
+        f"{singles_s:.4f} s), supersteps {[b.iterations for b in bres]}, "
+        f"every row's dist and iterations equal to GPUGraphComputer.run "
+        f"and dist to frontier_bfs_hybrid; seg_scan launches "
+        f"{launches_bfs}; peak memory {bfs_peak / 2**30:.3f} GiB")
+    rows = [row_scan_replay(S, captured.pop("values"), E.device_graph(
+        snap, comp.device).flags, "min")]
+    say_rows("BFS batch", rows[0], card)
+    del bres, singles
+    torch.cuda.empty_cache()
+
+    prog = MP.PageRank(0.85, 20, 0.0)
+    inv = np.where(snap.out_degree > 0, 1.0 / np.maximum(
+        snap.out_degree, 1), 0.0).astype(np.float32)
+    params = {"n": n, "inv_outdeg": inv}
+    # ---- the main path: the batched PageRank, counts from 0
+    torch.cuda.reset_peak_memory_stats()
+    S.seg_scan.launches = 0
+    E.sorted_segment_combine = capture
+    try:
+        pres, pr_s = wall_s(lambda: comp.run_batched(prog,
+                                                     [params] * PR_BATCH))
+    finally:
+        E.sorted_segment_combine = real
+    launches_pr = S.seg_scan.launches
+    # ---- end of the main path
+    check(launches_pr > 0, "the batched PageRank never launched seg_scan")
+    pr_peak = torch.cuda.max_memory_allocated()
+    one, one_s = wall_s(lambda: comp.run(prog, params))
+    for j, r in enumerate(pres):
+        check(r.iterations == one.iterations == 20 and np.array_equal(
+            r["rank"], one["rank"]), f"batched PageRank row {j} is not "
+              "bit-equal to the single run")
+    say(f"phase 5b: s{ENGINE_SCALE} run_batched(PageRank, K={PR_BATCH}, 20 "
+        f"supersteps) on {card}: {pr_s:.4f} s wall (one single run "
+        f"{one_s:.4f} s), every row bit-equal to the single run; seg_scan "
+        f"launches {launches_pr}; peak memory {pr_peak / 2**30:.3f} GiB")
+    rows.append(row_scan_replay(S, captured.pop("values"), E.device_graph(
+        snap, comp.device).flags, "sum", deg=np.diff(snap.indptr_in)))
+    say_rows("PageRank batch", rows[1], card)
+    del pres
+    torch.cuda.empty_cache()
+    return {"launches": launches_bfs + launches_pr, "rows": rows,
+            "bfs_s": bfs_s, "pagerank_s": pr_s, "bfs_peak": bfs_peak,
+            "pagerank_peak": pr_peak}
+
+
+def phase_checkpoint(S, ref, card) -> int:
+    """Phase 5c on phase 5's s22 snapshot: PageRank, 20 supersteps,
+    checkpointed every CKPT_EVERY into a directory of the checkout
+    (``.bench_cache/``, ignored): bit-equal to the run without
+    checkpoints; the round-15 and round-20 checkpoints removed, the
+    resumed run bit-equal; the newest remaining one corrupted, ``latest``
+    falls back to round 5 and the resumed run is bit-equal again. Then a
+    classic MapReduce, a histogram of the in-degrees an InDegree program
+    computes through seg_scan, against numpy. Returns the seg_scan
+    launches of the checkpointed, resumed and MapReduce runs."""
+    import os
+    import shutil
+
+    from titan_tpu_torch.models import pagerank as MP
+    from titan_tpu_torch.olap import engine as E
+    from titan_tpu_torch.olap.api import DenseProgram, MapReduce
+    from titan_tpu_torch.olap.recovery import CheckpointStore, FaultPlan
+
+    class InDegree(DenseProgram):
+        combine = "sum"
+        max_iterations = 1
+
+        def init(self, n, params):
+            return {"deg": torch.zeros((n,), dtype=torch.int32)}
+
+        def message(self, src_state, edge_data, params):
+            return torch.ones_like(src_state["deg"])
+
+        def apply(self, state, agg, iteration, params):
+            return {"deg": agg}
+
+    class DegreeHistogram(MapReduce):
+        memory_key = "degrees"
+
+        def map(self, vertex, emitter):
+            emitter.emit(vertex.value("deg"), 1)
+
+        def combine(self, key, values, emitter):
+            emitter.emit(key, sum(values))
+
+        def reduce(self, key, values, emitter):
+            emitter.emit(key, sum(values))
+
+        def finalize(self, results):
+            return {k: v[0] for k, v in results.items()}
+
+    snap = ref["snap"]
+    comp = E.GPUGraphComputer(snapshot=snap)
+    prog = MP.PageRank(0.85, 20, 0.0)
+    params = {"n": snap.n, "inv_outdeg": np.where(
+        snap.out_degree > 0, 1.0 / np.maximum(snap.out_degree, 1),
+        0.0).astype(np.float32)}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".bench_cache", "smoke_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    plain = comp.run(prog, params)
+    # ---- the checkpoint path, counts from 0
+    S.seg_scan.launches = 0
+    full, full_s = wall_s(lambda: comp.run(prog, params, checkpoint_to=root,
+                                           checkpoint_every=CKPT_EVERY))
+    store = CheckpointStore(root)
+    paths = store.checkpoints("run")
+    names = [os.path.basename(p) for p in paths]
+    check(names == [f"ckpt-a0001-r{r:08d}" for r in (5, 10, 15, 20)],
+          f"checkpoints {names}")
+    check(full.iterations == 20 and np.array_equal(full["rank"],
+                                                   plain["rank"]),
+          "the checkpointed PageRank differs from the uncheckpointed run")
+    for p in paths[2:]:
+        shutil.rmtree(p)
+    res1, res1_s = wall_s(lambda: comp.run(prog, params, resume_from=root))
+    check(res1.iterations == 20 and np.array_equal(res1["rank"],
+                                                   full["rank"]),
+          "PageRank resumed from round 10 differs")
+    FaultPlan.corrupt(paths[1])
+    check(store.latest("run").round == 5, "latest() did not fall back to "
+          "round 5 past the corrupted round 10")
+    res2 = comp.run(prog, params, resume_from=root)
+    check(res2.iterations == 20 and np.array_equal(res2["rank"],
+                                                   full["rank"]),
+          "PageRank resumed from round 5 differs")
+    mr, mr_s = wall_s(lambda: comp.run(InDegree(), {},
+                                       map_reduces=[DegreeHistogram()]))
+    launches = S.seg_scan.launches
+    # ---- end of the checkpoint path
+    check(launches > 0, "the checkpoint path never launched seg_scan")
+    shutil.rmtree(root, ignore_errors=True)
+    deg = np.diff(snap.indptr_in)
+    check(np.array_equal(mr["deg"], deg), "InDegree differs from indptr")
+    values, counts = np.unique(deg, return_counts=True)
+    check(mr.memory["degrees"] == dict(zip(values.tolist(),
+                                           counts.tolist())),
+          "the classic MapReduce degree histogram differs from numpy")
+    say(f"phase 5c: s{ENGINE_SCALE} PageRank checkpointed every "
+        f"{CKPT_EVERY} on {card}: {full_s:.4f} s (rounds 5, 10, 15, 20), "
+        f"bit-equal to the run without checkpoints; rounds 15 and 20 "
+        f"removed, resumed from 10 in {res1_s:.4f} s, bit-equal; round 10 "
+        f"corrupted, latest() fell back to 5, resumed bit-equal; classic "
+        f"MapReduce (in-degree histogram, {len(values)} degrees over "
+        f"{snap.n} vertex views) equal to numpy in {mr_s:.1f} s; seg_scan "
+        f"launches {launches}")
+    return launches
 
 
 def validate(g, dist, source: int, inf: int) -> None:
@@ -2123,10 +2473,18 @@ def main() -> int:
     phase_kernel_cases(F, G)
     phase_exhaust_cases(F)
     phase_seg_scan_cases(S)
+    phase_seg_scan_rows(S)
     phase_small(F, P, G)
     ref = engine_references(engine_build)
     main_build.join()     # the timed phases run with the host otherwise idle
     seg_rec, superstep_s = phase_engine(S, P, G, ref, card)
+    batched = phase_engine_batched(S, P, G, ref, card)
+    ckpt_launches = phase_checkpoint(S, ref, card)
+    seg_rec["launches_by_path"] = {"engine": seg_rec["launches"],
+                                   "engine_batched": batched["launches"],
+                                   "engine_checkpoint": ckpt_launches}
+    seg_rec["launches"] = sum(seg_rec["launches_by_path"].values())
+    seg_rec["rows"] = batched["rows"]
     peel22 = phase_frontier_s22(F, P, G, FR, PR, ref, card, superstep_s)
     del ref               # and with it the s22 graph cached on the card
     torch.cuda.empty_cache()

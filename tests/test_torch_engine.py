@@ -208,10 +208,6 @@ def test_device_graph_is_uploaded_once():
     np.testing.assert_array_equal(g.seg_has.numpy(), sh)
 
 
-class _Classic:
-    memory_key = "classic"
-
-
 class _Noop(DenseProgram):
     def init(self, n, params):
         return {"x": torch.zeros(n)}
@@ -226,13 +222,6 @@ class _Noop(DenseProgram):
 def test_computer_raises_for_what_is_not_ported(monkeypatch):
     _, _, pc, ps = _pair("random", "directed")
     prog = _Noop()
-    for kw in ({"resume_from": "x"}, {"checkpoint_to": "x"}):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            pc.run(prog, snapshot=ps, **kw)
-    with pytest.raises(NotImplementedError, match="classic MapReduce"):
-        pc.run(prog, snapshot=ps, map_reduces=[_Classic()])
-    with pytest.raises(NotImplementedError, match="batched"):
-        pc.run_batched(prog, [{}])
     with pytest.raises(NotImplementedError, match="scheduler"):
         pc.run_async(None)
     with pytest.raises(NotImplementedError, match="scheduler"):

@@ -173,12 +173,15 @@ def test_non_cpu_tensors_take_the_kernel_path_or_raise():
         S.seg_scan(*big, "sum")
 
 
-@pytest.mark.parametrize("bad", ["dtype", "flags", "combine", "size"])
+@pytest.mark.parametrize("bad", ["dtype", "flags", "combine", "size",
+                                 "row_flags", "rank"])
 def test_launch_checks_its_inputs(bad, monkeypatch):
     """The kernel path's checks, reached with meta tensors posing as CUDA
-    ones (no kernel is built or launched)."""
+    ones (no kernel is built or launched); ``row_flags``: K rows whose
+    stride is shorter than the flags, ``rank``: 3-d values."""
     e = 2**31 if bad == "size" else 16
-    v = torch.empty(e, dtype=torch.float64 if bad == "dtype" else
+    shape = {"row_flags": (2, e - 1), "rank": (2, 2, e)}.get(bad, (e,))
+    v = torch.empty(shape, dtype=torch.float64 if bad == "dtype" else
                     torch.float32, device="meta")
     f = torch.empty(e, dtype=torch.uint8 if bad == "flags" else torch.bool,
                     device="meta")

@@ -72,9 +72,23 @@
 // depends on which predecessors had published their prefix. The ticket is
 // an integer atomic on one counter and orders no float addition.
 //
+// Rows. One launch scans K rows of one shared flag array (the batched
+// engine's [K, ld] messages: `dst`, hence the flags, is the same for
+// every job). Row r's values and output start r * ld elements after the
+// base pointers (n <= ld). The tiles are numbered row-major, tile t being
+// tile t % T of row t / T with T = ceil(n / kTile), and the ticket hands
+// them out in that order, so tile j - 1 of a row is always ticketed
+// before tile j. Each row has its own T statuses, and index 0 of every
+// row starts a segment, so no look-back leaves its row. Inside a row the
+// tiles, their statuses and their look-backs are exactly those of the
+// one-row call on that row, so every row is bit-equal to it, float sums
+// included; one row with ld = n is that call. A row whose start is not
+// 16-byte aligned (ld * 4 bytes not a multiple of 16) takes the
+// element-by-element path, which stages and stores the same values.
+//
 // The statuses and the ticket live in a scratch array of
-// ceil(n / kTile) + 1 64-bit words that the wrapper zeroes before every
-// call, so no call reads a status of an earlier one. Integer sums wrap
+// rows * ceil(n / kTile) + 1 64-bit words that the wrapper zeroes before
+// every call, so no call reads a status of an earlier one. Integer sums wrap
 // (two's complement), as the plain version's do. Offsets are int64; the
 // wrapper raises at E >= 2^31 (the engine's last-index gather is int32).
 // The last tile, and inputs not aligned to 16 bytes, are staged and
@@ -437,6 +451,26 @@ __device__ void scan_tile(Stage& st, int64_t tile, int64_t n,
   }
 }
 
+// Tile t of the launch: tile t % tiles of row t / tiles, with the row's
+// pointers and statuses.
+template <class T>
+struct RowTile {
+  int64_t tile;        // within the row
+  const T* vals;
+  T* out;
+  uint64_t* status;
+  bool aligned;
+};
+template <class T>
+__device__ __forceinline__ RowTile<T> row_tile(int64_t t, int64_t tiles,
+                                               int64_t ld, const T* vals,
+                                               T* out, uint64_t* status,
+                                               bool aligned) {
+  const int64_t r = t / tiles;
+  return {t - r * tiles, vals + r * ld, out + r * ld, status + r * tiles,
+          aligned && ((r * ld) & 3) == 0};
+}
+
 // Persistent: each block takes tiles by ticket into a ring of kStages
 // stages. In round i it starts copying its tile i + kAhead, reduces tile
 // i (publishing its aggregate) and then finishes tile i - 1: by then the
@@ -445,21 +479,23 @@ __device__ void scan_tile(Stage& st, int64_t tile, int64_t n,
 template <class T, class Op>
 __global__ void __launch_bounds__(kThreads)
 seg_scan_kernel(const T* __restrict__ vals, const uint8_t* __restrict__ flags,
-                int64_t n, T* __restrict__ out, uint64_t* __restrict__ status,
+                int64_t n, int64_t ld, int64_t tiles, int64_t ntiles,
+                T* __restrict__ out, uint64_t* __restrict__ status,
                 unsigned* __restrict__ ticket, bool aligned) {
   extern __shared__ uint4 dyn[];
   Stage* stage = reinterpret_cast<Stage*>(dyn);
   __shared__ Block<T> sh;
   const int tid = threadIdx.x;
-  const int64_t ntiles = (n + kTile - 1) / kTile;
   if (tid == 0)
     for (int j = 0; j < kAhead; ++j) sh.tile[j] = atomicAdd(ticket, 1u);
   __syncthreads();
   if (sh.tile[0] >= ntiles) return;
   for (int j = 0; j < kAhead; ++j) {
-    if (sh.tile[j] < ntiles)
-      stage_tile<T, Op>(stage[j], vals, flags, n, sh.tile[j], aligned);
-    else
+    if (sh.tile[j] < ntiles) {
+      const RowTile<T> rt =
+          row_tile(sh.tile[j], tiles, ld, vals, out, status, aligned);
+      stage_tile<T, Op>(stage[j], rt.vals, flags, n, rt.tile, rt.aligned);
+    } else
       cp_async_commit();  // an empty group keeps the count
   }
   unsigned ahead = tid == 0 ? atomicAdd(ticket, 1u) : 0u;
@@ -471,7 +507,9 @@ seg_scan_kernel(const T* __restrict__ vals, const uint8_t* __restrict__ flags,
     __syncthreads();
     const int64_t next = sh.tile[load];
     if (next < ntiles) {
-      stage_tile<T, Op>(stage[load], vals, flags, n, next, aligned);
+      const RowTile<T> rt = row_tile(next, tiles, ld, vals, out, status,
+                                     aligned);
+      stage_tile<T, Op>(stage[load], rt.vals, flags, n, rt.tile, rt.aligned);
       if (tid == 0) ahead = atomicAdd(ticket, 1u);  // staged next round
     } else {
       cp_async_commit();
@@ -479,11 +517,18 @@ seg_scan_kernel(const T* __restrict__ vals, const uint8_t* __restrict__ flags,
     cp_async_wait_ahead();  // this thread's copies of tile i have landed
     __syncthreads();        // and every thread's
     const int64_t tile = sh.tile[cur];
-    if (tile < ntiles)
-      scan_tile<T, Op, false>(stage[cur], tile, n, out, status, aligned, sh);
-    if (i > 0)
-      scan_tile<T, Op, true>(stage[prev], sh.tile[prev], n, out, status,
-                             aligned, sh);
+    if (tile < ntiles) {
+      const RowTile<T> rt = row_tile(tile, tiles, ld, vals, out, status,
+                                     aligned);
+      scan_tile<T, Op, false>(stage[cur], rt.tile, n, rt.out, rt.status,
+                              rt.aligned, sh);
+    }
+    if (i > 0) {
+      const RowTile<T> rt = row_tile(int64_t(sh.tile[prev]), tiles, ld, vals,
+                                     out, status, aligned);
+      scan_tile<T, Op, true>(stage[prev], rt.tile, n, rt.out, rt.status,
+                             rt.aligned, sh);
+    }
     if (tile >= ntiles) return;
   }
 }
@@ -519,9 +564,10 @@ cudaError_t resident_blocks(int* blocks) {
 }
 
 template <class T, class Op>
-int launch(const void* vals, const uint8_t* flags, int64_t n, void* out,
-           uint64_t* scratch, cudaStream_t st) {
-  const int64_t ntiles = (n + kTile - 1) / kTile;
+int launch(const void* vals, const uint8_t* flags, int64_t n, int64_t rows,
+           int64_t ld, void* out, uint64_t* scratch, cudaStream_t st) {
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  const int64_t ntiles = rows * tiles;
   const bool aligned = ((reinterpret_cast<uintptr_t>(vals) |
                          reinterpret_cast<uintptr_t>(flags) |
                          reinterpret_cast<uintptr_t>(out)) & 15) == 0;
@@ -531,21 +577,23 @@ int launch(const void* vals, const uint8_t* flags, int64_t n, void* out,
   // the blocks that fit on the card at once, no more than the tiles
   const int64_t grid = ntiles < resident ? ntiles : resident;
   seg_scan_kernel<T, Op><<<(unsigned)grid, kThreads, kSmem, st>>>(
-      static_cast<const T*>(vals), flags, n, static_cast<T*>(out), scratch,
+      static_cast<const T*>(vals), flags, n, ld, tiles, ntiles,
+      static_cast<T*>(out), scratch,
       reinterpret_cast<unsigned*>(scratch + ntiles), aligned);
   return cudaGetLastError();
 }
 
 template <class T>
 int launch_combine(int combine, const void* vals, const uint8_t* flags,
-                   int64_t n, void* out, uint64_t* scratch, cudaStream_t st) {
+                   int64_t n, int64_t rows, int64_t ld, void* out,
+                   uint64_t* scratch, cudaStream_t st) {
   switch (combine) {
     case 0:
-      return launch<T, Sum>(vals, flags, n, out, scratch, st);
+      return launch<T, Sum>(vals, flags, n, rows, ld, out, scratch, st);
     case 1:
-      return launch<T, Min>(vals, flags, n, out, scratch, st);
+      return launch<T, Min>(vals, flags, n, rows, ld, out, scratch, st);
     case 2:
-      return launch<T, Max>(vals, flags, n, out, scratch, st);
+      return launch<T, Max>(vals, flags, n, rows, ld, out, scratch, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -556,21 +604,31 @@ extern "C" {
 
 int tt_seg_scan_tile(void) { return kTile; }
 
-// Enqueues the scan on `stream` (one launch); returns its cudaError_t.
-// dtype: 0 float32, 1 int32. combine: 0 sum, 1 min, 2 max.
-// Scratch: ceil(n / tt_seg_scan_tile()) + 1 64-bit words, zeroed before
-// every call (the tile statuses, then the ticket counter).
-int tt_seg_scan(int dtype, int combine, const void* vals, const uint8_t* flags,
-                int64_t n, void* out, void* scratch, void* stream) {
-  if (n < 0 || n >= (int64_t(1) << 31)) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
+// Enqueues the scan of `rows` rows of n elements, row r at vals + r * ld
+// and out + r * ld (n <= ld), all under the one flag array of n bytes, on
+// `stream` (one launch; one row with ld = n is the one-row scan); returns
+// its cudaError_t. dtype: 0 float32,
+// 1 int32. combine: 0 sum, 1 min, 2 max. Scratch: rows * ceil(n /
+// tt_seg_scan_tile()) + 1 64-bit words, zeroed before every call (the
+// tile statuses, row by row, then the ticket counter).
+int tt_seg_scan_rows(int dtype, int combine, const void* vals,
+                     const uint8_t* flags, int64_t n, int64_t rows,
+                     int64_t ld, void* out, void* scratch, void* stream) {
+  if (n < 0 || n >= (int64_t(1) << 31) || rows < 0 || ld < n)
+    return cudaErrorInvalidValue;
+  if (n == 0 || rows == 0) return cudaSuccess;
+  // the ticket and the tile numbers are 32-bit
+  if (rows * ((n + kTile - 1) / kTile) >= (int64_t(1) << 31))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint64_t* sc = static_cast<uint64_t*>(scratch);
   switch (dtype) {
     case 0:
-      return launch_combine<float>(combine, vals, flags, n, out, sc, st);
+      return launch_combine<float>(combine, vals, flags, n, rows, ld, out, sc,
+                                   st);
     case 1:
-      return launch_combine<int32_t>(combine, vals, flags, n, out, sc, st);
+      return launch_combine<int32_t>(combine, vals, flags, n, rows, ld, out,
+                                     sc, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -7,6 +7,9 @@ static segment metadata of a dst-sorted edge list (``last_idx``,
 (``ops/seg_scan.seg_scan``, the CUDA kernel for a CUDA tensor), then the
 gather at each segment's last edge, with the identity for empty
 segments. Without metadata it is a plain ``scatter_reduce_``.
+``sorted_segment_combine`` also takes K rows of messages, ``[K, ld]``
+(the batched engine's): one scan launch over every row, then the gather
+along the rows.
 """
 
 from __future__ import annotations
@@ -40,19 +43,29 @@ def segment_flags(seg_ids):
 
 
 def sorted_segment_combine(values, seg_ids, last_idx, seg_has, combine: str,
-                           flags=None):
+                           flags=None, out=None):
     """Scan-based segment combine for dst-sorted edges with static
-    metadata. ``flags`` are ``segment_flags(seg_ids)``, computed here when
-    not given (the engine keeps them, since ``dst`` is static)."""
+    metadata: ``values`` [E] into [n], or K rows ``values`` [K, ld] (row
+    k's E messages in its first E columns, E = ``len(seg_ids)`` <= ld)
+    into [K, n], each row exactly the one-row combine of that row.
+    ``flags`` are ``segment_flags(seg_ids)``, computed here when not given
+    (the engine keeps them, since ``dst`` is static). ``out``, when
+    given, receives the result (it may be a strided view)."""
     ident = combine_identity(combine, values.dtype)
-    if values.shape[0] == 0:
-        return torch.full(seg_has.shape, ident, dtype=values.dtype,
-                          device=values.device)
+    if seg_ids.shape[0] == 0:
+        shape = values.shape[:-1] + seg_has.shape
+        if out is None:
+            return torch.full(shape, ident, dtype=values.dtype,
+                              device=values.device)
+        return out.fill_(ident)
     if flags is None:
         flags = segment_flags(seg_ids)
     r = seg_scan(values, flags, combine)
-    out = r.index_select(0, last_idx.clamp(min=0))
-    return torch.where(seg_has, out, ident)
+    last = r.index_select(-1, last_idx.clamp(min=0))
+    if out is None:
+        return torch.where(seg_has, last, ident)
+    # where() takes a Python scalar only without out=
+    return torch.where(seg_has, last, last.new_full((), ident), out=out)
 
 
 def segment_combine(values, segment_ids, num_segments: int, combine: str,

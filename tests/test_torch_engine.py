@@ -222,10 +222,13 @@ class _Noop(DenseProgram):
 def test_computer_raises_for_what_is_not_ported(monkeypatch):
     _, _, pc, ps = _pair("random", "directed")
     prog = _Noop()
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        pc.run_async(None)
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        pc.scheduler()
+    # the scheduler is ported; its interactive lane is not
+    sched = pc.scheduler(autostart=False, hbm_budget_bytes=1e12)
+    try:
+        with pytest.raises(NotImplementedError, match="interactive"):
+            sched.interactive()
+    finally:
+        sched.close()
     with pytest.raises(NotImplementedError, match="multi-device"):
         PE.run_sharded(prog, ps)
     with pytest.raises(ValueError, match="fixed snapshot"):

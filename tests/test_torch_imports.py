@@ -4,6 +4,8 @@ anything of the JAX package titan_tpu."""
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -34,6 +36,48 @@ def test_the_port_scripts_are_scanned():
             "seg_scan.py", "engine.py", "overlay.py"} <= names
     assert ROOT / "titan_tpu_torch" / "olap" / "live" / "__init__.py" \
         in FILES
+
+
+SERVING = [("olap", "serving", m) for m in (
+    "__init__", "autotune", "batcher", "hbm", "jobs", "pool", "scheduler",
+    "tenants")] + [("obs", m) for m in (
+        "__init__", "devprof", "flightrec", "slo", "tracing")] + [
+    ("utils", "__init__"), ("utils", "metrics")]
+
+
+def test_the_serving_obs_and_utils_modules_are_scanned():
+    for parts in SERVING:
+        path = ROOT.joinpath("titan_tpu_torch", *parts[:-1],
+                             parts[-1] + ".py")
+        assert path in FILES, path
+
+
+def test_importing_the_serving_layer_loads_no_jax():
+    """At run time too: importing the serving layer, the observability
+    plane and the metrics registry in a fresh interpreter loads no module
+    of jax or titan_tpu (imports inside functions included, since the
+    scheduler runs some on its worker)."""
+    code = (
+        "import sys\n"
+        "import titan_tpu_torch.olap.serving as S\n"
+        "import titan_tpu_torch.olap.serving.autotune, "
+        "titan_tpu_torch.obs.devprof, titan_tpu_torch.obs.flightrec\n"
+        "import titan_tpu_torch.utils.metrics\n"
+        "import numpy as np\n"
+        "from titan_tpu_torch.olap import snapshot as SN\n"
+        "from titan_tpu_torch.olap.api import JobSpec\n"
+        "s = S.JobScheduler(snapshot=SN.from_arrays(4, [0, 1], [1, 0]),\n"
+        "                   device='cpu', hbm_budget_bytes=1e9)\n"
+        "j = s.submit(JobSpec(kind='bfs', params={'source_dense': 0}))\n"
+        "assert j.wait(60) and j.state.value == 'done', j.error\n"
+        "s.close()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'titan_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_guard_sees_the_prefix_correctly():

@@ -3,9 +3,15 @@
 The library is named by a hash of the source, the headers it may
 include and the command, so an edited source or header is rebuilt and
 an unchanged one is reused. The compiler
-writes to a process-unique temporary name that is renamed into place,
-so concurrent builds never load a half-written file. A failed build
-raises with the compiler's stderr; nothing falls back.
+writes to a temporary name unique to the process and thread, renamed
+into place, so concurrent builds never load a half-written file; within
+one process a lock per library makes a second thread wait for the first
+build instead of compiling again. A failed build raises with the
+compiler's stderr; nothing falls back.
+
+Each compile that runs is reported to the callables in ``ON_BUILD``
+(``fn(name, seconds)``); ``obs/devprof`` counts them as
+``device.compile.*``. A library found already built reports nothing.
 """
 
 from __future__ import annotations
@@ -14,12 +20,18 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 #: where the CUDA kernels of ``csrc/`` are built (listed in .gitignore)
 CUDA_BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: callables ``fn(name, seconds)`` told of every compile that runs
+ON_BUILD: list = []
+_LOCKS: dict = {}
+_LOCKS_LOCK = threading.Lock()
 
 
 def build_shared(src: str, cmd: list[str], build_dir: str, name: str,
@@ -36,20 +48,30 @@ def build_shared(src: str, cmd: list[str], build_dir: str, name: str,
     out = os.path.join(build_dir, f"{name}_{digest}.so")
     if os.path.exists(out):
         return out
-    os.makedirs(build_dir, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    try:
-        proc = subprocess.run(cmd + ["-o", tmp, src], capture_output=True,
-                              text=True, timeout=timeout)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building {src} failed ({' '.join(cmd)}):\n{proc.stderr}")
-        with open(out + ".log", "w") as f:
-            f.write(proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(out, threading.Lock())
+    with lock:
+        if os.path.exists(out):       # another thread built it meanwhile
+            return out
+        os.makedirs(build_dir, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd + ["-o", tmp, src],
+                                  capture_output=True, text=True,
+                                  timeout=timeout)
+            if proc.returncode != 0:
+                raise RuntimeError(f"building {src} failed "
+                                   f"({' '.join(cmd)}):\n{proc.stderr}")
+            with open(out + ".log", "w") as f:
+                f.write(proc.stderr)
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        seconds = time.perf_counter() - t0
+    for fn in list(ON_BUILD):
+        fn(name, seconds)
     return out
 
 

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from titan_tpu_torch.device import INF, next_pow2, resolve_device
+from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.ops.compaction import (CLAIM_SENTINEL, claim_dedup,
                                             claim_reset, compact_ids,
                                             scatter_compact)
@@ -95,20 +96,45 @@ def build_chunked_csr(snap, device=None) -> dict:
     ``snap.n``, ``snap.out_csr()`` -> (dst_by_src, indptr) and
     ``snap.out_degree``. Returns ``dstT`` [8, Q] int32, ``colstart``
     [n+1] int32, ``degc`` and ``deg`` [n+1] int32 (0 for the sink),
-    ``q_total`` and ``n``."""
+    ``q_total`` and ``n``.
+
+    Cached on the snapshot as the JAX package caches its own, in
+    ``snap._hybrid_csr_by_device``, a dict keyed by device: a second call
+    on the same device returns the same dict and tensors, with no host
+    build and no upload; deleting the attribute (the serving scheduler's
+    eviction) drops every device's copy. The name differs from the JAX
+    package's ``_hybrid_csr`` (one flat graph) because one snapshot
+    object may be handed to both packages, and each must find only its
+    own cache on it. A snapshot that cannot take the attribute is built
+    every call. Each upload counts once on ``obs/devprof``'s
+    ``bfs.chunked_csr`` H2D site."""
     dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    cache = getattr(snap, "_hybrid_csr_by_device", None)
+    if cache is not None and dev in cache:
+        return cache[dev]
     n = snap.n
     dst_by_src, indptr_out = snap.out_csr()
     deg = np.asarray(snap.out_degree).astype(np.int64)
     dstT, colstart, degc, q_total = chunked_layout(
         dst_by_src, indptr_out, deg, n)
-    return {"dstT": torch.from_numpy(dstT).to(dev),
-            "colstart": torch.from_numpy(colstart.astype(np.int32)).to(dev),
-            "degc": torch.from_numpy(
-                np.concatenate([degc, [0]]).astype(np.int32)).to(dev),
-            "deg": torch.from_numpy(
-                np.concatenate([deg, [0]]).astype(np.int32)).to(dev),
-            "q_total": q_total, "n": n}
+    devprof.count_h2d("bfs.chunked_csr", dstT.nbytes + 3 * (n + 1) * 4)
+    out = {"dstT": torch.from_numpy(dstT).to(dev),
+           "colstart": torch.from_numpy(colstart.astype(np.int32)).to(dev),
+           "degc": torch.from_numpy(
+               np.concatenate([degc, [0]]).astype(np.int32)).to(dev),
+           "deg": torch.from_numpy(
+               np.concatenate([deg, [0]]).astype(np.int32)).to(dev),
+           "q_total": q_total, "n": n}
+    if cache is None:
+        cache = {}
+        try:
+            snap._hybrid_csr_by_device = cache
+        except AttributeError:        # __slots__ or a frozen object
+            return out
+    cache[dev] = out
+    return out
 
 
 def enumerate_chunk_pairs(valid, counts, colstarts, p_cap: int, q_pad: int,
@@ -851,4 +877,7 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
         completed[act_h] = True
         levels[act_h] = level
     out = dist[:, :n]
-    return (out if return_device else out.cpu().numpy()), levels, completed
+    if return_device:
+        return out, levels, completed
+    devprof.count_d2h("bfs.dist", out.numel() * out.element_size())
+    return out.cpu().numpy(), levels, completed

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from titan_tpu_torch.models import frontier as FR
+from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.olap.api import DenseMapReduce, DenseProgram
 
 
@@ -122,7 +123,10 @@ def pagerank_personalized_batched(snap_or_graph, sources=None,
         contrib = torch.stack([r[1] for r in rows])
         del acc, rows
     out = rank[:, :n]
-    return (out if return_device else out.cpu().numpy()), it
+    if return_device:
+        return out, it
+    devprof.count_d2h("frontier.result", out.numel() * out.element_size())
+    return out.cpu().numpy(), it
 
 
 def top_k_per_user(ranks, vertex_ids, k: int = 10, exclude=None):

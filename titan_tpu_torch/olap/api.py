@@ -1,13 +1,15 @@
 """The vertex-program contract of the engine (port of ``DenseProgram``,
 ``DenseMapReduce`` and the classic ``MapReduce`` stage with its emitters
-and ``execute_map_reduce`` in ``titan_tpu/olap/api.py``). The dense
+and ``execute_map_reduce`` in ``titan_tpu/olap/api.py``), and the job
+description of the serving layer (``EdgeData``, ``JobSpec``). The dense
 callbacks take and return torch tensors; a classic stage maps host
 vertex views."""
 
 from __future__ import annotations
 
 import abc
-from typing import Any, Sequence
+from dataclasses import dataclass, field
+from typing import Any, Optional, Sequence
 
 
 class MapEmitter:
@@ -113,6 +115,60 @@ class DenseMapReduce(abc.ABC):
 
     @abc.abstractmethod
     def compute(self, state: dict, snapshot, params: dict): ...
+
+
+@dataclass
+class EdgeData:
+    """Per-edge arrays aligned with the snapshot's edge order."""
+    values: dict = field(default_factory=dict)   # name -> array [E]
+
+
+@dataclass
+class JobSpec:
+    """A job for the serving layer (``olap/serving``); the fields and
+    defaults of the JAX package's ``JobSpec``.
+
+    ``kind``: 'bfs' (same-snapshot BFS jobs fuse into one [K, n] batched
+    run), 'sssp' | 'wcc' (same-knob jobs fuse into a cohort),
+    'pagerank' (alone), 'dense' (a ``DenseProgram`` instance under
+    ``params['program']``) or 'callable' (``params['fn']``, run on the
+    host).
+
+    ``deadline`` is an absolute ``time.time()`` by which the job must
+    START — jobs still queued past it are EXPIRED. ``timeout_s`` bounds
+    the run, checked at level and round boundaries.
+    ``labels``/``edge_keys``/``directed`` select the snapshot (pool
+    parameters; the port's pool holds one fixed snapshot and ignores
+    them). ``directed=False`` is the default: the direction-optimizing
+    BFS needs a symmetric graph.
+
+    Recovery: ``max_retries`` lets a RUNNING job that dies requeue as
+    RETRYING, with exponential backoff from ``retry_backoff_s``, up to
+    that many extra attempts before FAILED; ``checkpoint_every > 0``
+    (with the scheduler's ``checkpoint_dir``) captures the state every N
+    round boundaries so a retried attempt resumes from the newest valid
+    checkpoint, bit-equal to an uninterrupted run. Cancellation, timeout
+    and parameter errors never retry.
+
+    ``tenant`` attributes the job's queue-ms / device-seconds /
+    HBM-byte-seconds / replayed rounds to a named tenant (unset or empty:
+    ``"default"``). ``idempotency_key`` names the logical job across
+    processes: its checkpoints are keyed by it, so a redispatch resumes
+    them on its first attempt."""
+
+    kind: str
+    params: dict = field(default_factory=dict)
+    priority: int = 0
+    deadline: Optional[float] = None
+    timeout_s: Optional[float] = None
+    labels: Optional[Sequence[str]] = None
+    edge_keys: Sequence[str] = ()
+    directed: bool = False
+    max_retries: int = 0
+    checkpoint_every: int = 0
+    retry_backoff_s: float = 0.05
+    tenant: Optional[str] = None
+    idempotency_key: Optional[str] = None
 
 
 class DenseProgram(abc.ABC):

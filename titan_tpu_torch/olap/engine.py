@@ -25,9 +25,13 @@ expressions of ``run_single``), and one ``seg_scan`` launch over the K
 rows of messages. A job that reports done freezes.
 
 ``GPUGraphComputer`` is the counterpart of ``TPUGraphComputer`` for a
-fixed snapshot. The scheduler and the sharded engine are not ported yet
-(ROADMAP queue 1, items 8 and 9); nor is building a snapshot from a
-graph (item 6b).
+fixed snapshot; ``run_async`` submits to its ``olap/serving``
+``JobScheduler``. The sharded engine is not ported yet (ROADMAP queue 1,
+item 9); nor is building a snapshot from a graph (item 6b).
+
+Each superstep of ``run_single`` runs under ``obs/devprof.profiled``
+(``engine.superstep``); the graph upload and the outputs' readback count
+on its ``engine.graph`` and ``engine.outputs`` transfer sites.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import numpy as np
 import torch
 
 from titan_tpu_torch.device import resolve_device
+from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.olap.api import (DenseMapReduce, DenseProgram,
                                       MapReduce, execute_map_reduce)
 from titan_tpu_torch.olap.recovery import CheckpointStore
@@ -119,7 +124,10 @@ def device_graph(snap: GraphSnapshot, device=None) -> DeviceGraph:
     on the snapshot (repeated runs must not pay the upload again). The
     segment-start flags are computed once here: ``dst`` is static."""
     dev = resolve_device(device)
-    g = snap._device_graphs.get(dev)
+    cache = getattr(snap, "_device_graphs", None)
+    if cache is None:             # dropped by the scheduler's eviction
+        cache = snap._device_graphs = {}
+    g = cache.get(dev)
     if g is None:
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -128,7 +136,12 @@ def device_graph(snap: GraphSnapshot, device=None) -> DeviceGraph:
         g = DeviceGraph(up(snap.src), dst,
                         {k: up(v) for k, v in snap.edge_values.items()},
                         up(last_idx), up(seg_has), segment_flags(dst))
-        snap._device_graphs[dev] = g
+        devprof.count_h2d(
+            "engine.graph",
+            snap.src.nbytes + snap.dst.nbytes + last_idx.nbytes
+            + seg_has.nbytes + sum(v.nbytes
+                                   for v in snap.edge_values.values()))
+        cache[dev] = g
     return g
 
 
@@ -206,20 +219,31 @@ def run_single(program: DenseProgram, snap: GraphSnapshot,
         it_end = min(max_iter, (it // every + 1) * every) if every > 0 \
             else max_iter
         while it < it_end and not done:
-            src_state = {k: v.index_select(0, g.src)
-                         for k, v in state.items()}
-            msg = program.message(src_state, edata, dparams)
-            agg = segment_combine(msg, g.dst, n, program.combine,
-                                  last_idx=g.last_idx, seg_has=g.seg_has,
-                                  flags=g.flags)
-            new_state = program.apply(state, agg, it, dparams)
-            done = _is_done(program.done(state, new_state, agg, it, dparams))
-            state = new_state
+            state, done_v = devprof.profiled(
+                "engine.superstep", _superstep, program, state, g, edata,
+                dparams, it, n)
+            done = _is_done(done_v)
             it += 1
         if every > 0:
             checkpoint(it, {k: v.clone() for k, v in state.items()})
     outputs = program.outputs(state, params)
+    devprof.count_d2h("engine.outputs",
+                      sum(v.numel() * v.element_size()
+                          for v in outputs.values()))
     return EngineResult(_host(outputs), it, n)
+
+
+def _superstep(program: DenseProgram, state: dict, g: DeviceGraph,
+               edata: dict, dparams: dict, it: int, n: int):
+    """One superstep of ``run_single``: ``(new_state, done)``, ``done``
+    as the program returns it (not read back here)."""
+    src_state = {k: v.index_select(0, g.src) for k, v in state.items()}
+    msg = program.message(src_state, edata, dparams)
+    agg = segment_combine(msg, g.dst, n, program.combine,
+                          last_idx=g.last_idx, seg_has=g.seg_has,
+                          flags=g.flags)
+    new_state = program.apply(state, agg, it, dparams)
+    return new_state, program.done(state, new_state, agg, it, dparams)
 
 
 def _row_buffer(k: int, n: int, dtype, dev) -> torch.Tensor:
@@ -352,6 +376,7 @@ class GPUGraphComputer:
                  device=None):
         self._default_snapshot = snapshot
         self.device = resolve_device(device)
+        self._scheduler = None
 
     def snapshot(self, labels=None, edge_keys=(),
                  directed=True) -> GraphSnapshot:
@@ -428,12 +453,20 @@ class GPUGraphComputer:
                      for di in range(snap.n))
             result.memory[mr.memory_key] = execute_map_reduce(mr, views)
 
-    def run_async(self, spec):
-        raise NotImplementedError(
-            "run_async: the job scheduler is not ported yet (ROADMAP "
-            "queue 1, item 8)")
-
     def scheduler(self, **kwargs):
-        raise NotImplementedError(
-            "scheduler: the job scheduler is not ported yet (ROADMAP "
-            "queue 1, item 8)")
+        """The computer's job scheduler (``olap/serving.JobScheduler``)
+        over its fixed snapshot, on its device, created on first use and
+        shared by every ``run_async`` call. The fixed-snapshot pool
+        ignores a job's snapshot parameters, so the caller makes the
+        snapshot fit the jobs (symmetric for BFS)."""
+        if self._scheduler is None or self._scheduler.closed:
+            from titan_tpu_torch.olap.serving.scheduler import JobScheduler
+            self._scheduler = JobScheduler(
+                snapshot=self._default_snapshot, device=self.device,
+                **kwargs)
+        return self._scheduler
+
+    def run_async(self, spec):
+        """Submit a ``JobSpec`` (``olap/api.py``) to this computer's
+        scheduler; returns the ``Job`` handle at once."""
+        return self.scheduler().submit(spec)

@@ -18,9 +18,8 @@ Buffer establishment and capacity growth are fills on the device. Every
 byte that does cross from the host (payloads and the int32 index words of
 the scatters) is counted on ``serving.live.upload_bytes`` when a
 ``metrics`` manager is attached (duck-typed:
-``metrics.counter(name).inc(k)``). The JAX package also mirrors that
-count onto its device profiler (``obs/devprof``); the port's profiler
-belongs to the serving slice, so that mirror is not ported.
+``metrics.counter(name).inc(k)``), and mirrored onto ``obs/devprof``'s
+``overlay.delta`` H2D site, as in the JAX package.
 
 Views are immutable. JAX's ``.at[].set`` returns new arrays, so a view
 frozen by ``view()`` never changes when the overlay appends later. In
@@ -45,6 +44,7 @@ import numpy as np
 import torch
 
 from titan_tpu_torch.device import next_pow2, resolve_device
+from titan_tpu_torch.obs import devprof
 
 #: smallest add-buffer capacity bucket (power of two)
 MIN_CAP = 1024
@@ -270,6 +270,7 @@ class DeltaOverlay:
         if self._metrics is not None and nbytes:
             self._metrics.counter("serving.live.upload_bytes") \
                 .inc(int(nbytes))
+        devprof.count_h2d("overlay.delta", int(nbytes))
 
     def _upload(self, host: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(host)).to(self.device)

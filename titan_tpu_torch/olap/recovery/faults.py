@@ -65,11 +65,13 @@ class FaultPlan:
         if attempt > self.fail_attempts:
             return
         if self.evict_at_round is not None and round_ == self.evict_at_round:
-            # the snapshot's device graphs (olap/engine.device_graph):
-            # the retried attempt uploads them again
-            caches = getattr(snapshot, "_device_graphs", None)
-            if caches is not None:
-                caches.clear()
+            # the snapshot's device caches (olap/engine.device_graph,
+            # models/bfs_hybrid.build_chunked_csr): the retried attempt
+            # uploads them again
+            for attr in ("_device_graphs", "_hybrid_csr_by_device"):
+                caches = getattr(snapshot, attr, None)
+                if caches is not None:
+                    caches.clear()
             raise SnapshotEvicted(
                 f"injected: snapshot evicted at round {round_} "
                 f"(attempt {attempt})")

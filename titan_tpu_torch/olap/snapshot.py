@@ -34,6 +34,10 @@ class GraphSnapshot:
     # device -> olap/engine.DeviceGraph, filled by engine.device_graph
     _device_graphs: dict = field(default_factory=dict, init=False,
                                  repr=False, compare=False)
+    # device -> chunked-CSR dict, filled by models/bfs_hybrid
+    # .build_chunked_csr (the serving scheduler's eviction deletes it)
+    _hybrid_csr_by_device: dict = field(default_factory=dict, init=False,
+                              repr=False, compare=False)
     # out_csr's cache: (dst_by_src, indptr_out) and the src-order
     # permutation (src-order position -> dst-order row)
     _out_csr: Optional[tuple] = field(default=None, init=False, repr=False,

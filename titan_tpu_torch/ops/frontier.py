@@ -37,7 +37,8 @@ with ``nvcc`` at first use and bound with ctypes. The round is one
 launch, a persistent pass that ranks survivors by decoupled look-back
 between tiles, after the wrapper zeroes its scratch (the tile statuses
 and a ticket counter); the sweep is one persistent launch into a zeroed
-``[G, c_cap]`` word array.
+``[G, c_cap]`` word array. Both wrappers are ``obs/devprof`` seams
+(``frontier_round``, ``batched_exhaust``).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ import torch
 
 from titan_tpu_torch.build import build_cuda
 from titan_tpu_torch.device import next_pow2
+from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.ops.compaction import scatter_compact
 
 #: exhaust pairs a slice of the plain sweep: its [8, slice] gathers and
@@ -253,11 +255,13 @@ def frontier_round(cols, undec, has_more, pay0, pay1, fbits, tbits, dstT,
     Returns ``(found [K, C] bool, pay0c [C], pay1c [C], nsur 0-d int32)``;
     on a card ``nsur`` stays on the device and nothing synchronises."""
     if dstT.device.type == "cpu":
-        return frontier_round_reference(
-            cols, undec, has_more, pay0, pay1, fbits, tbits, dstT,
-            lanes=lanes, fill0=fill0, fill1=fill1)
-    return _launch(cols, undec, has_more, pay0, pay1, fbits, tbits, dstT,
-                   lanes, fill0, fill1)
+        return devprof.profiled(
+            "frontier_round", frontier_round_reference, cols, undec,
+            has_more, pay0, pay1, fbits, tbits, dstT, lanes=lanes,
+            fill0=fill0, fill1=fill1)
+    return devprof.profiled("frontier_round", _launch, cols, undec,
+                            has_more, pay0, pay1, fbits, tbits, dstT,
+                            lanes, fill0, fill1)
 
 
 #: kernel launches so far (the CPU path never counts)
@@ -330,10 +334,12 @@ def batched_exhaust(cols, owner, p_total, fbits, tbits, dstT, *, K: int,
     Returns ``found_per [K, c_cap]`` bool: some open parent of some live
     pair of the candidate is in job k's frontier."""
     if dstT.device.type == "cpu":
-        return batched_exhaust_reference(cols, owner, p_total, fbits, tbits,
-                                         dstT, K=K, c_cap=c_cap)
-    return job_bits(_launch_exhaust(cols, owner, p_total, fbits, tbits, dstT,
-                                    K, c_cap), K)
+        return devprof.profiled("batched_exhaust", batched_exhaust_reference,
+                                cols, owner, p_total, fbits, tbits, dstT,
+                                K=K, c_cap=c_cap)
+    return job_bits(devprof.profiled("batched_exhaust", _launch_exhaust,
+                                     cols, owner, p_total, fbits, tbits,
+                                     dstT, K, c_cap), K)
 
 
 #: kernel launches so far (the CPU path never counts)

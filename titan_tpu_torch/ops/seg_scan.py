@@ -22,7 +22,8 @@ tile statuses and a ticket counter); K rows are one launch too, each row
 bit-equal to the one-row launch on that row. Its float sums add in
 another order than the plain version's, so the two agree to a tolerance, not bit for
 bit, but the same inputs give the same bits on every run; min, max and
-integer sums agree exactly.
+integer sums agree exactly. The wrapper is an ``obs/devprof`` seam
+(``seg_scan``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import functools
 import torch
 
 from titan_tpu_torch.build import build_cuda
+from titan_tpu_torch.obs import devprof
 
 COMBINES = ("sum", "min", "max")
 _OPS = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
@@ -139,8 +141,9 @@ def seg_scan(values, flags, combine: str):
     giving [K, E] (a view of [K, ld] on a card); see the module doc. On a
     card nothing synchronises."""
     if values.device.type == "cpu":
-        return seg_scan_reference(values, flags, combine)
-    return _launch(values, flags, combine)
+        return devprof.profiled("seg_scan", seg_scan_reference, values,
+                                flags, combine)
+    return devprof.profiled("seg_scan", _launch, values, flags, combine)
 
 
 #: kernel launches so far (the CPU path never counts)

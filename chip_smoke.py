@@ -137,7 +137,38 @@ Phases, each of which raises on failure:
    expired deadline; ``bfs.chunked_csr`` counted once; the
    ``device.exec`` children of the three kernels; the K = 16 batch with
    the profiler on and off, in turns. The served runs' launches are
-   ``launches_by_path["serving"]`` of each kernel.
+   ``launches_by_path["serving"]`` of each kernel;
+11. the live plane and the interactive lane at s22 (after phase 10, on
+   phase 5's snapshot). 11a: two epochs over the snapshot, bench.py's
+   default-policy epoch (batches of 256 undirected adds and 8 removed
+   undirected base edges until ``EpochCompactor.should_compact``) and a
+   large one (2^20 undirected adds, one add killed in place, 4,096
+   removed undirected base edges, stopped at ``REMOVE_BUDGET_S``); each
+   compacted on the card through a logged HBM ledger: ``device`` mode
+   with no fallback, the double buffer reserved, re-keyed and unpinned,
+   ``memory_allocated`` grown by the merged CSR (``ALLOC_SLACK``); the
+   device merge timed (best of ``MERGE_REPS`` by CUDA events, after a
+   warm-up), its peak memory and its top ops under ``torch.profiler``,
+   the host sync (``merge_delta``, of it ``_merge_out_csr``) timed; the
+   BFS of phase 5b's 16 sources over base + overlay equal to the merged
+   epoch's; then each epoch bit-equal to its host oracle (the compactor's
+   full re-sort and a CPU ``build_chunked_csr``, run in a background
+   thread meanwhile): the device CSR, the synced arrays and their
+   incremental out-CSR, the lazy mirror's ``dstT``. 11b: the lane through
+   ``JobScheduler.interactive()``, fused (window ``LANE_WINDOW_S``, up to
+   16) and solo (``SOLO_WINDOW_S``), as bench.py's ``interactive_stage``:
+   bursts of 16 2-hop ``both()`` counts, each one batch, p50/p95 ms
+   against solo queries, every count equal to a top-down expansion
+   (``expand_once``); ids at depths 1-4 in one batch against the
+   expansion and a direct hops call; ``out()`` (the reversed layout,
+   uploaded once) and ``in_()`` equal to ``both()``; a mixed-label
+   ``out()`` chain on a labeled view of the same arrays against a
+   label-filtered expansion; counts under 11a's large-epoch overlay equal
+   to the merged epoch's, a directed chain falling back; 8 PPR queries in
+   one batch against a direct ``pagerank_personalized_batched``
+   (``PPR_RTOL``). The two paths' launches are ``launches_by_path
+   ["live"]`` and ``["interactive"]`` of ``frontier_round`` and
+   ``batched_exhaust``.
 
 The line before the last is the ``{"kernels": [...]}`` record of the
 three kernels (each record's ``launches`` sums its paths, listed under
@@ -149,6 +180,7 @@ script exits 1 and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -2733,6 +2765,663 @@ def phase_serving_s22(F, P, FR, S, ref, card) -> dict:
             "profile_off_s": off_s}
 
 
+# ---- phase 11: the live plane's epoch merge and the interactive lane
+
+#: bench.py's live_refresh_stage batch: undirected adds and removed
+#: undirected base edges a delta batch
+LIVE_BATCH_EDGES = 256
+LIVE_BATCH_REMOVES = 8
+#: the large epoch: undirected adds (2^21 rows fill the 2^21 bucket) and
+#: removed undirected base edges, stopped at REMOVE_BUDGET_S (remove_edge
+#: walks a row in a Python loop)
+LARGE_ADDS = 1 << 20
+LARGE_REMOVES = 4096
+REMOVE_BUDGET_S = 60.0
+#: the device merge is timed as the best of these runs, after a warm-up
+MERGE_REPS = 3
+#: the interactive lane as bench.py's interactive_stage sets it up
+LANE_WINDOW_S = 0.05
+SOLO_WINDOW_S = 1e-4
+LANE_REPS = 3
+LANE_DEPTH = 4
+PPR_LANE_USERS = 8
+PPR_LANE_ITERS = 10
+TOP_K = 10
+
+
+class LoggedLedger:
+    """An HBM ledger whose reserve / release / unpin calls are logged;
+    ``steps(names)`` reads the log with the keys named."""
+
+    def __init__(self, ledger):
+        self.ledger, self.log = ledger, []
+
+    def reserve(self, key, nbytes):
+        self.log.append(("reserve", key, nbytes))
+        self.ledger.reserve(key, nbytes)
+
+    def release(self, key):
+        self.log.append(("release", key))
+        self.ledger.release(key)
+
+    def unpin(self, key):
+        self.log.append(("unpin", key))
+        self.ledger.unpin(key)
+
+    def steps(self, names: dict) -> list:
+        """The log, a tuple key (the compactor's double buffer) named
+        ``next`` and the others by ``names``."""
+        return [(op, "next" if isinstance(key, tuple) else names[key],
+                 *rest) for op, key, *rest in self.log]
+
+
+def remove_base_edges(ov, snap, pool, rng, count: int,
+                      budget_s: float = float("inf")) -> tuple:
+    """Tombstone ``count`` distinct undirected base edges, both rows, with
+    ``remove_edge``; ``pool`` lists the rows with src < dst (each
+    undirected edge once). Stops once ``budget_s`` has passed. Returns
+    (edges removed, seconds)."""
+    rows = pool[rng.choice(len(pool), count, replace=False)]
+    t0 = time.time()
+    done = 0
+    for i in rows:
+        if time.time() - t0 > budget_s:
+            break
+        u, v = int(snap.src[i]), int(snap.dst[i])
+        check(ov.remove_edge(u, v, None) and ov.remove_edge(v, u, None),
+              f"base edge {u}-{v} was not live")
+        done += 1
+    return done, time.time() - t0
+
+
+def live_epochs(OV, snap, rng):
+    """The two epochs of phase 11a over ``snap``: bench.py's default-policy
+    epoch (delta batches until ``should_compact`` fires) and the large
+    one. Returns one dict an epoch: overlay, metrics, what went in."""
+    from titan_tpu_torch.olap.live import EpochCompactor
+    from titan_tpu_torch.utils.metrics import MetricManager
+
+    n = snap.n
+    pool = np.flatnonzero(snap.src < snap.dst)
+    zeros = np.zeros(2 * LIVE_BATCH_EDGES, np.int32)
+    m1 = MetricManager()
+    ov1 = OV.DeltaOverlay(snap, metrics=m1)
+    batches = 0
+    while not EpochCompactor().should_compact(ov1):
+        a_s = rng.integers(0, n, LIVE_BATCH_EDGES).astype(np.int32)
+        a_d = rng.integers(0, n, LIVE_BATCH_EDGES).astype(np.int32)
+        ov1.append_edges(np.concatenate([a_s, a_d]),
+                         np.concatenate([a_d, a_s]), zeros)
+        remove_base_edges(ov1, snap, pool, rng, LIVE_BATCH_REMOVES)
+        ov1.view()
+        batches += 1
+    epochs = [{"name": "default-policy", "ov": ov1, "metrics": m1,
+               "batches": batches, "removed": batches * LIVE_BATCH_REMOVES,
+               "remove_s": None}]
+    m2 = MetricManager()
+    ov2 = OV.DeltaOverlay(snap, metrics=m2)
+    a_s = rng.integers(0, n, LARGE_ADDS).astype(np.int32)
+    a_d = rng.integers(0, n, LARGE_ADDS).astype(np.int32)
+    ov2.append_edges(np.concatenate([a_s, a_d]), np.concatenate([a_d, a_s]),
+                     np.zeros(2 * LARGE_ADDS, np.int32))
+    # one add killed in place: the first whose ends are no base edge
+    dbs, ip = snap.out_csr()
+    k = next(i for i in range(LARGE_ADDS)
+             if a_s[i] != a_d[i]
+             and not (dbs[ip[a_s[i]]:ip[a_s[i] + 1]] == a_d[i]).any())
+    check(ov2.remove_edge(int(a_s[k]), int(a_d[k]), None)
+          and ov2.dead_adds == 1, "the add was not killed in place")
+    removed, remove_s = remove_base_edges(ov2, snap, pool, rng,
+                                          LARGE_REMOVES, REMOVE_BUDGET_S)
+    ov2.view()
+    epochs.append({"name": "large", "ov": ov2, "metrics": m2, "batches": 1,
+                   "removed": removed, "remove_s": remove_s})
+    return epochs
+
+
+def host_oracles(snap, epochs):
+    """The host oracle of each epoch, run beside the card's work: the
+    compactor's full stable re-sort (``EpochCompactor.merge``), then
+    ``build_chunked_csr`` on the CPU."""
+    from titan_tpu_torch.models import bfs_hybrid as P
+    from titan_tpu_torch.olap.live import EpochCompactor
+
+    out = []
+    for ep in epochs:
+        t0 = time.time()
+        oracle = EpochCompactor(device="cpu").merge(snap, ep["ov"])
+        t1 = time.time()
+        ocsr = P.build_chunked_csr(oracle, "cpu")
+        out.append({"snap": oracle, "csr": ocsr, "merge_s": t1 - t0,
+                    "build_s": time.time() - t1})
+    return out
+
+
+def top_ops(prof, k: int = 8) -> list:
+    """The ``k`` aten ops of a torch.profiler run with the most device
+    time of their own: (name, calls, ms)."""
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0 and e.key.startswith("aten::"):
+            rows.append((e.key, e.count, round(us / 1e3, 4)))
+    return sorted(rows, key=lambda r: -r[2])[:k]
+
+
+def compact_epoch(P, SN, EM, snap, ep, launches, srcs, card) -> dict:
+    """One epoch on the card: the compactor's device path through a
+    logged ledger, the memory it takes, the device merge's time (best of
+    MERGE_REPS by CUDA events, after a warm-up) and its top ops, and the
+    BFS of ``srcs`` over base + overlay against the merged epoch."""
+    from titan_tpu_torch.olap.live import EpochCompactor
+    from titan_tpu_torch.olap.serving.hbm import (HBMLedger,
+                                                  chunked_csr_bytes,
+                                                  snapshot_csr_bytes)
+
+    ov, mm = ep["ov"], ep["metrics"]
+    view = ov.view()
+    g = P.build_chunked_csr(snap)
+    _, _, _, q_new = EM.merged_degrees_host(snap, ov)
+    nbytes = chunked_csr_bytes(snap.n, q_new)
+
+    def merge():
+        return EM.merge_chunked_csr(g, view, q_total_new=q_new,
+                                    e_base=snap.num_edges)
+    merge()                                   # warm-up, discarded
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    comp = EpochCompactor()
+    ledger = LoggedLedger(HBMLedger())
+    base_bytes = snapshot_csr_bytes(snap)
+    ledger.reserve(id(snap), base_bytes)      # the served current epoch
+    ledger.unpin(id(snap))
+    # the host sync's seconds, and those of its incremental out-CSR
+    host_s = {}
+    originals = {name: getattr(SN, name)
+                 for name in ("merge_delta", "_merge_out_csr")}
+
+    def clocked(name):
+        def call(*a):
+            t = time.time()
+            out = originals[name](*a)
+            host_s[name] = time.time() - t
+            return out
+        return call
+    a0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for name in originals:
+        setattr(SN, name, clocked(name))
+    try:
+        (merged, mode), compact_s = wall_s(lambda: comp.compact(
+            snap, ov, ledger=ledger, metrics=mm))
+    finally:
+        for name, fn in originals.items():
+            setattr(SN, name, fn)
+    peak = torch.cuda.max_memory_allocated() - a0
+    grew = torch.cuda.memory_allocated() - a0
+    check(mode == "device" and comp.fallbacks == {}, f"epoch "
+          f"{ep['name']}: mode {mode}, fallbacks {comp.fallbacks}")
+    steps = ledger.steps({id(snap): "base", id(merged): "merged"})
+    check(steps[2:] == [("reserve", "next", nbytes), ("release", "next"),
+                        ("reserve", "merged", nbytes), ("unpin", "merged")]
+          and ledger.ledger._bytes == {id(snap): base_bytes,
+                                       id(merged): nbytes}
+          and ledger.ledger.pinned_bytes() == 0,
+          f"epoch {ep['name']}: ledger steps {steps}")
+    check(0 <= grew - nbytes < ALLOC_SLACK, f"epoch {ep['name']}: the "
+          f"merged CSR took {grew} bytes, the ledger predicts {nbytes}")
+    out = merged._hybrid_csr_by_device[g["dstT"].device]
+    ms = [timed(merge)[1] * 1e3 for _ in range(MERGE_REPS)]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        merge()
+        torch.cuda.synchronize()
+    ops = top_ops(prof)
+
+    # the semantic check: what the overlay served is what the merge kept
+    def bfs_both():
+        d_ov, _, _ = P.frontier_bfs_batched(snap, srcs, overlay=view,
+                                            return_device=True)
+        d_m, _, _ = P.frontier_bfs_batched(merged, srcs,
+                                           return_device=True)
+        return d_ov, d_m
+    d_ov, d_m = launches.run(bfs_both)
+    check(torch.equal(d_ov, d_m), f"epoch {ep['name']}: the BFS over "
+          f"base + overlay differs from the BFS on the merged epoch")
+    del d_ov, d_m
+    rec = {"epoch": ep["name"], "rows_added": ov.count,
+           "dead_adds": ov.dead_adds, "tombstones": ov.tomb_count,
+           "batches": ep["batches"], "removed_edges": ep["removed"],
+           "remove_s": ep["remove_s"], "q_total": q_new,
+           "device_merge_ms": min(ms), "device_merge_ms_runs": ms,
+           "peak_bytes": peak, "grew_bytes": grew,
+           "compact_device_s": compact_s,
+           "merge_delta_s": host_s["merge_delta"],
+           "merge_out_csr_s": host_s["_merge_out_csr"],
+           "compact_device_ms": mm.histogram(
+               "serving.live.compact_device_ms").max,
+           "delta_bytes": mm.counter_value("serving.live.upload_bytes"),
+           "full_bytes": snapshot_csr_bytes(merged), "top_ops": ops}
+    say(f"phase 11a: epoch {ep['name']} on {card}: "
+        f"{ov.count} rows added ({ov.dead_adds} killed in place), "
+        f"{ov.tomb_count} base rows tombstoned; compact() in device mode, "
+        f"no fallback, {compact_s:.4f} s (merge_delta "
+        f"{host_s['merge_delta']:.4f} s, of it _merge_out_csr "
+        f"{host_s['_merge_out_csr']:.4f} s); "
+        f"device merge {min(ms):.4f} ms (best of {MERGE_REPS}: "
+        f"{[round(x, 4) for x in ms]}), peak {peak} bytes above the "
+        f"start, memory_allocated grew {grew} bytes for a {nbytes}-byte "
+        f"merged CSR; ledger: the next epoch reserved beside the current, "
+        f"re-keyed and unpinned; delta bytes {rec['delta_bytes']} against "
+        f"{rec['full_bytes']} of the merged image; BFS of {len(srcs)} "
+        f"sources over base + overlay equal to the merged epoch's; top "
+        f"ops {ops}")
+    return rec, merged, out
+
+
+def check_against_oracle(ep, merged, out, oracle) -> None:
+    """The merged epoch against its host oracle: the device CSR, the
+    delta-synced arrays and their incremental out-CSR, the lazy mirror."""
+    o, ocsr = oracle["snap"], oracle["csr"]
+    name = ep["name"]
+    check(out["q_total"] == ocsr["q_total"], f"epoch {name}: q_total")
+    dstT = out["dstT"].cpu().numpy()
+    check(np.array_equal(dstT, ocsr["dstT"].numpy()),
+          f"epoch {name}: the device dstT differs from the host oracle's")
+    for k in ("colstart", "degc", "deg"):
+        check(torch.equal(out[k].cpu(), ocsr[k]), f"epoch {name}: {k}")
+    for attr in ("src", "dst", "indptr_in", "out_degree"):
+        check(np.array_equal(getattr(merged, attr), getattr(o, attr)),
+              f"epoch {name}: merge_delta's {attr} differs from the oracle")
+    for a, b, what in ((merged._out_csr[0], o._out_csr[0], "dst_by_src"),
+                       (merged._out_csr[1], o._out_csr[1], "indptr_out"),
+                       (merged._out_csr_order, o._out_csr_order,
+                        "out_csr order")):
+        check(np.array_equal(a, b), f"epoch {name}: the incremental "
+              f"{what} differs from a fresh out_csr()")
+    check(np.array_equal(out["_host"]["dstT"], dstT),
+          f"epoch {name}: LazyHostMirror['dstT'] differs from the card's")
+
+
+def phase_live_s22(P, SN, OV, EM, ref, card, launches) -> dict:
+    """Phase 11a on phase 5's snapshot: two epochs merged on the card,
+    each against its host oracle (computed in the background). Returns
+    the epochs' records and the large epoch's overlay view and merged
+    snapshot for phase 11b."""
+    snap, hg = ref["snap"], ref["hg"]
+    srcs = sample_sources(hg["deg"], BATCH_K)
+    t0 = time.time()
+    epochs = live_epochs(OV, snap, np.random.default_rng(SEED))
+    say(f"phase 11a: overlays built in {time.time() - t0:.1f} s: "
+        f"default policy {epochs[0]['batches']} batch(es) of "
+        f"{2 * LIVE_BATCH_EDGES} rows and {LIVE_BATCH_REMOVES} undirected "
+        f"removals; large {epochs[1]['ov'].count} rows, "
+        f"{epochs[1]['removed']} of {LARGE_REMOVES} undirected base edges "
+        f"removed in {epochs[1]['remove_s']:.1f} s (budget "
+        f"{REMOVE_BUDGET_S:.0f} s)")
+    oracles = Background(lambda: host_oracles(snap, epochs))
+    recs, results = [], []
+    for ep in epochs:
+        rec, merged, out = compact_epoch(P, SN, EM, snap, ep, launches,
+                                         srcs, card)
+        recs.append(rec)
+        results.append((merged, out))
+    t0 = time.time()
+    done = oracles.result()
+    waited = time.time() - t0
+    for ep, (merged, out), oracle, rec in zip(epochs, results, done, recs):
+        check_against_oracle(ep, merged, out, oracle)
+        rec["compact_host_s"] = oracle["merge_s"]
+        rec["oracle_csr_s"] = oracle["build_s"]
+    del done
+    say(f"phase 11a: both epochs bit-equal to the host oracle (dstT, "
+        f"colstart, degc, deg, q_total; src, dst, indptr_in, out_degree "
+        f"and the incremental out-CSR against a fresh out_csr(); the lazy "
+        f"mirror's dstT against the card's); compact_host_s "
+        f"{[round(r['compact_host_s'], 3) for r in recs]}, the oracle's "
+        f"CPU chunked CSR {[round(r['oracle_csr_s'], 3) for r in recs]} s "
+        f"(in the background; waited {waited:.1f} s)")
+    say("phase 11a: records " + json.dumps(
+        [{k: v for k, v in r.items() if k != "top_ops"} for r in recs]))
+    return {"records": recs, "view": epochs[-1]["ov"].view(),
+            "merged": results[-1][0]}
+
+
+def hop_sets(g, x: int, depth: int) -> list:
+    """The exact hop-1..depth sets from ``x`` (bool [n] each), by
+    ``expand_once`` alone."""
+    cur = torch.zeros(g["n"], dtype=torch.bool, device=g["dstT"].device)
+    cur[x] = True
+    out = []
+    for _ in range(depth):
+        cur = expand_once(g, cur)
+        out.append(cur)
+    return out
+
+
+def labeled_expansion(ends, n: int, x: int, hop_codes) -> torch.Tensor:
+    """The hop set of an out() chain whose hop h follows only edges with a
+    label code in ``hop_codes[h]``, in plain torch over the snapshot's
+    (src, dst, label) rows on the card."""
+    src, dst, lab = ends
+    cur = torch.zeros(n, dtype=torch.bool, device=src.device)
+    cur[x] = True
+    for codes in hop_codes:
+        keep = cur[src] & torch.isin(lab, torch.tensor(codes,
+                                                        device=lab.device))
+        nxt = torch.zeros_like(cur)
+        nxt[dst[keep]] = True
+        cur = nxt
+    return cur
+
+
+def burst(lane, bodies, plan_from_wire) -> list:
+    """Submit ``bodies`` to ``lane`` from one thread each, released
+    together; returns [(result, ms from submit to reply)] in order. The
+    garbage of earlier answers (lists of millions of ids) is collected
+    first: a collection inside the burst holds every submitter for tens
+    of ms, longer than the fuse window."""
+    gc.collect()
+    out = [None] * len(bodies)
+    gate = threading.Barrier(len(bodies))
+
+    def go(i):
+        plan = plan_from_wire(bodies[i])
+        gate.wait()
+        t = time.time()
+        try:
+            out[i] = (lane.submit(plan), (time.time() - t) * 1e3)
+        except Exception as e:           # re-raised below, in order
+            out[i] = (e, None)
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+        check(not t.is_alive(), "a point query did not return")
+    for res, _ in out:
+        if isinstance(res, Exception):
+            raise res
+    return out
+
+
+def one_batch(out, k: int, what: str) -> list:
+    """The results of a burst that must have run as ONE batch of k."""
+    res = [r for r, _ in out]
+    check({r["fused_k"] for r in res} == {k}
+          and len({r["batch"] for r in res}) == 1,
+          f"{what}: not one batch of {k}: "
+          f"{[(r['batch'], r['fused_k']) for r in res]}")
+    return res
+
+
+def phase_interactive_s22(P, FR, PR, SN, ref, live, card, launches) -> dict:
+    """Phase 11b on phase 5's snapshot: the interactive lane through
+    ``JobScheduler.interactive()``, fused (window LANE_WINDOW_S, up to 16)
+    beside solo (SOLO_WINDOW_S), as bench.py's interactive_stage runs
+    it; every answer against a top-down expansion; then the same lane
+    under phase 11a's large-epoch overlay, and personalized PageRank."""
+    from titan_tpu_torch.olap.serving import JobScheduler
+    from titan_tpu_torch.olap.serving.hbm import snapshot_csr_bytes
+    from titan_tpu_torch.olap.serving.interactive import (
+        FallbackToInterpreter, plan_from_wire)
+    from titan_tpu_torch.utils.metrics import MetricManager, nearest_rank
+
+    snap, hg = ref["snap"], ref["hg"]
+    n = snap.n
+    g = P.build_chunked_csr(snap)
+    srcs = sample_sources(hg["deg"], BATCH_K)
+    t0 = time.time()
+    sets = {x: hop_sets(g, x, LANE_DEPTH) for x in srcs}
+    sets_s = time.time() - t0
+    scheds = []
+
+    def scheduler(s, window):
+        sch = JobScheduler(snapshot=s, metrics=MetricManager(),
+                           autostart=False, interactive_window_s=window,
+                           interactive_max_fuse=BATCH_K)
+        scheds.append(sch)
+        return sch
+
+    def q(x, **kw):
+        return dict({"start": [int(x)], "dir": "both", "hops": 2,
+                     "terminal": "count"}, **kw)
+
+    def same_ids(res, want, what):
+        got = np.sort(np.asarray(res["result"], np.int64))
+        check(np.array_equal(got, torch.nonzero(want).flatten()
+                             .cpu().numpy()), f"{what}: ids differ from "
+              f"the top-down expansion")
+
+    try:
+        fused = scheduler(snap, LANE_WINDOW_S)
+        solo = scheduler(snap, SOLO_WINDOW_S)
+        lane_f, lane_s = fused.interactive(), solo.interactive()
+
+        # ---- the fused K = 16 count batch against solo queries
+        def lane_runs():
+            lane_s.submit(plan_from_wire(q(srcs[0])))          # warm
+            burst(lane_f, [q(x) for x in srcs], plan_from_wire)
+            fused_runs = [burst(lane_f, [q(x) for x in srcs],
+                                plan_from_wire) for _ in range(LANE_REPS)]
+            seq = []
+            for _ in range(LANE_REPS):
+                for x in srcs:
+                    t = time.time()
+                    r = lane_s.submit(plan_from_wire(q(x)))
+                    seq.append((r, (time.time() - t) * 1e3))
+            return fused_runs, seq
+        fused_runs, seq = launches.run(lane_runs)
+        for out in fused_runs:
+            for x, r in zip(srcs, one_batch(out, BATCH_K, "fused counts")):
+                check(r["result"] == int(sets[x][1].sum()), f"count of "
+                      f"{x}: {r['result']}, expansion {int(sets[x][1].sum())}")
+        for (r, _), x in zip(seq, srcs * LANE_REPS):
+            check(r["fused_k"] == 1 and r["result"] == int(sets[x][1].sum()),
+                  f"solo count of {x}")
+        fused_ms = [ms for out in fused_runs for _, ms in out]
+        exec_ms = [r["exec_ms"] for out in fused_runs for r, _ in out]
+        seq_ms = [ms for _, ms in seq]
+        occ = fused._metrics.histogram("serving.interactive.fuse_k") \
+            .to_dict()
+        check(occ["count"] == LANE_REPS + 1 and occ["min"] == BATCH_K,
+              f"fuse occupancy {occ}")
+        # where a fused batch's time goes: the same hops sweep called
+        # directly (with its [16] size readback), and the ledger's byte
+        # count the lane computes a batch
+        def direct():
+            dist, _, _ = P.frontier_bfs_batched(
+                g, srcs, max_levels=3, start_level=1, mode="hops",
+                on_level=lambda level, nf: None if level <= 2
+                else np.zeros(BATCH_K, bool), return_device=True)
+            return (dist == 3).sum(dim=1, dtype=torch.int32).cpu()
+        direct()
+        sizes, direct_s = min((wall_s(direct) for _ in range(REPS)),
+                              key=lambda r: r[1])
+        check(sizes.tolist() == [int(sets[x][1].sum()) for x in srcs],
+              "the direct hops sweep's sizes differ from the expansion")
+        _, bytes_s = wall_s(lambda: snapshot_csr_bytes(snap))
+        stats = {"point_query_fused_p50_ms": nearest_rank(fused_ms, 0.5),
+                 "point_query_fused_p95_ms": nearest_rank(fused_ms, 0.95),
+                 "point_query_seq_p50_ms": nearest_rank(seq_ms, 0.5),
+                 "point_query_seq_p95_ms": nearest_rank(seq_ms, 0.95),
+                 "fused_exec_ms_per_batch": nearest_rank(exec_ms, 0.5),
+                 "fused_device_ms_per_query":
+                     nearest_rank(exec_ms, 0.5) / BATCH_K,
+                 "solo_exec_ms_p50": nearest_rank(
+                     [r["exec_ms"] for r, _ in seq], 0.5),
+                 "direct_hops_ms": direct_s * 1e3,
+                 "ledger_bytes_ms": bytes_s * 1e3,
+                 "fuse_occupancy": occ}
+        say(f"phase 11b: interactive lane at s{ENGINE_SCALE} on {card}: "
+            f"{LANE_REPS} bursts of {BATCH_K} 2-hop both() counts, each one "
+            f"batch of {BATCH_K}, against {LANE_REPS * BATCH_K} solo "
+            f"queries, every count equal to the top-down expansion (hop "
+            f"sets to depth {LANE_DEPTH} of the {BATCH_K} sources in "
+            f"{sets_s:.1f} s): " + json.dumps(
+                {k: (round(v, 4) if isinstance(v, float) else v)
+                 for k, v in stats.items()}))
+
+        # ---- id terminal at depths 1-4, against the direct hops call
+        depths = [1 + i % LANE_DEPTH for i in range(BATCH_K)]
+        bodies = [q(x, hops=d, terminal="id") for x, d in zip(srcs, depths)]
+        res = one_batch(launches.run(lambda: burst(
+            lane_f, bodies, plan_from_wire)), BATCH_K, "ids at depths 1-4")
+        for x, d, r in zip(srcs, depths, res):
+            same_ids(r, sets[x][d - 1], f"{x} at depth {d}")
+        del res
+
+        def on_level(level, nf):
+            keep = np.asarray([level <= d for d in depths])
+            return keep if not keep.all() else None
+        dist, _, _ = P.frontier_bfs_batched(
+            g, srcs, max_levels=LANE_DEPTH + 1, start_level=1,
+            on_level=on_level, mode="hops", return_device=True)
+        for k, (x, d) in enumerate(zip(srcs, depths)):
+            check(torch.equal(dist[k] == d + 1, sets[x][d - 1]),
+                  f"direct hops row {k} differs from the expansion")
+        del dist
+
+        # ---- out() on the reversed layout, in_(): both equal both()
+        rev_before = fused._metrics.counter_value(
+            "device.xfer.h2d_bytes", {"site": "interactive.rev_csr"})
+        for dirname in ("out", "in", "out"):
+            bodies = [q(x, dir=dirname, terminal="id" if i < 4 else "count")
+                      for i, x in enumerate(srcs)]
+            res = one_batch(launches.run(lambda: burst(
+                lane_f, bodies, plan_from_wire)), BATCH_K, dirname)
+            for i, (x, r) in enumerate(zip(srcs, res)):
+                if i < 4:
+                    same_ids(r, sets[x][1], f"{dirname}() from {x}")
+                else:
+                    check(r["result"] == int(sets[x][1].sum()),
+                          f"{dirname}() count from {x}")
+            del res
+        rev = snap._hybrid_csr_rev_by_device[g["dstT"].device]
+        rev_bytes = fused._metrics.counter_value(
+            "device.xfer.h2d_bytes", {"site": "interactive.rev_csr"}) \
+            - rev_before
+        check(rev_bytes == rev["dstT"].numel() * 4 + 3 * (n + 1) * 4,
+              f"the reversed layout uploaded {rev_bytes} bytes: not once")
+        check(torch.equal(rev["dstT"], g["dstT"]), "the reversed layout of "
+              "a symmetric graph differs from its forward layout")
+        say(f"phase 11b: ids at depths 1-4 (one batch of {BATCH_K}) equal "
+            f"the expansion and a direct frontier_bfs_batched(mode='hops'); "
+            f"out() and in_() equal both() and the expansion; the reversed "
+            f"layout uploaded once ({rev_bytes} bytes), bit-equal to the "
+            f"forward one on this symmetric graph")
+
+        # ---- a mixed-label chain over a labeled view of the same arrays
+        labels = np.random.default_rng(SEED).integers(
+            0, 3, snap.num_edges).astype(np.int32)
+        lsnap = SN.GraphSnapshot(n, snap.vertex_ids, snap.src, snap.dst,
+                                 snap.indptr_in, snap.out_degree, {},
+                                 labels, {0: "a", 1: "b", 2: "c"})
+        # the same arrays: the layouts and the out-CSR carry over
+        lsnap._out_csr, lsnap._out_csr_order = snap.out_csr(), \
+            snap._out_csr_order
+        lsnap._hybrid_csr_rev_by_device = dict(
+            snap._hybrid_csr_rev_by_device)
+        lane_l = scheduler(lsnap, LANE_WINDOW_S).interactive()
+        chain = [["a"], ["b", "c"]]
+        bodies = [q(x, dir="out", labels=chain, terminal="id")
+                  for x in srcs]
+        (res, t_mixed) = wall_s(lambda: launches.run(lambda: burst(
+            lane_l, bodies, plan_from_wire)))
+        res = one_batch(res, BATCH_K, "mixed-label chain")
+        dev = g["dstT"].device
+        ends = (torch.from_numpy(snap.src).to(dev).long(),
+                torch.from_numpy(snap.dst).to(dev).long(),
+                torch.from_numpy(labels).to(dev))
+        sizes = []
+        for x, r in zip(srcs, res):
+            want = labeled_expansion(ends, n, x, [[0], [1, 2]])
+            same_ids(r, want, f"mixed-label chain from {x}")
+            sizes.append(int(want.sum()))
+        del ends, lsnap, labels, res
+        say(f"phase 11b: mixed-label out() chain a then b|c (per-hop slot "
+            f"masks on the reversed layout), one batch of {BATCH_K} in "
+            f"{t_mixed:.4f} s with the masks' build, ids equal to a "
+            f"label-filtered expansion; hop-2 sizes {sizes}")
+
+        # ---- under phase 11a's large-epoch overlay
+        merged = scheduler(live["merged"], LANE_WINDOW_S).interactive()
+        snap._live_overlay = live["view"]
+        try:
+            bodies = [q(x) for x in srcs]
+            res = one_batch(launches.run(lambda: burst(
+                lane_f, bodies, plan_from_wire)), BATCH_K, "overlay")
+            want = one_batch(launches.run(lambda: burst(
+                merged, bodies, plan_from_wire)), BATCH_K, "merged epoch")
+            check([r["result"] for r in res] == [r["result"] for r in want],
+                  "counts over base + overlay differ from the merged "
+                  "epoch's")
+            try:
+                lane_f.submit(plan_from_wire(q(srcs[0], dir="out")))
+                check(False, "a directed chain over the overlay ran")
+            except FallbackToInterpreter:
+                pass
+        finally:
+            del snap._live_overlay
+        say(f"phase 11b: under the large epoch's overlay, {BATCH_K} 2-hop "
+            f"both() counts equal the merged epoch's "
+            f"{[r['result'] for r in res][:4]}...; a directed chain falls "
+            f"back to the interpreter")
+
+        # ---- personalized PageRank, fused
+        users = srcs[:PPR_LANE_USERS]
+        bodies = [{"kind": "ppr", "source": x, "iterations": PPR_LANE_ITERS,
+                   "top_k": TOP_K} for x in users]
+        res = one_batch(launches.run(lambda: burst(
+            lane_f, bodies, plan_from_wire)), PPR_LANE_USERS, "ppr")
+        (ranks, _), batched_s = wall_s(
+            lambda: PR.pagerank_personalized_batched(
+                snap, users, iterations=PPR_LANE_ITERS))
+        seq_s = 0.0
+        for x in users:
+            one = torch.zeros(n, dtype=torch.float32, device=dev)
+            one[x] = 1.0
+            _, t = wall_s(lambda: FR.pagerank_dense(
+                snap, iterations=PPR_LANE_ITERS, reset=one,
+                return_device=True))
+            seq_s += t
+        worst = 0.0
+        for s, (x, r) in enumerate(zip(users, res)):
+            row = ranks[s]
+            mine = PR.top_k_per_user(ranks[s:s + 1], snap.vertex_ids,
+                                     k=TOP_K, exclude=[x])[0]
+            check(len(r["result"]) == len(mine) == TOP_K, f"ppr {x}: "
+                  f"{len(r['result'])} recommendations")
+            for (v, rank), (w, _) in zip(r["result"], mine):
+                err = abs(rank - row[v]) / row[v]
+                worst = max(worst, err)
+                check(err <= PPR_RTOL, f"ppr {x}: rank of {v} off by {err}")
+                check(v == w or abs(row[v] - row[w])
+                      <= PPR_RTOL * max(row[v], row[w]),
+                      f"ppr {x}: {v} recommended where the direct run "
+                      f"ranks {w}")
+        stats.update({"ppr_users": PPR_LANE_USERS,
+                      "ppr_iterations": PPR_LANE_ITERS,
+                      "ppr_lane_exec_ms": res[0]["exec_ms"],
+                      "ppr_batched_wall_s": batched_s,
+                      "ppr_seq_wall_s": seq_s})
+        say(f"phase 11b: {PPR_LANE_USERS} ppr queries ({PPR_LANE_ITERS} "
+            f"iterations) in one batch, ranks within {worst:.3g} of a direct "
+            f"pagerank_personalized_batched (tolerance {PPR_RTOL:g}), top-"
+            f"{TOP_K} ids equal where ranks differ by more; lane exec "
+            f"{res[0]['exec_ms']:.3f} ms; batched {batched_s:.4f} s against "
+            f"{seq_s:.4f} s for {PPR_LANE_USERS} pagerank_dense(reset="
+            f"one-hot) runs")
+    finally:
+        for s in scheds:
+            s.close()
+    return stats
+
+
 def sssp_round_split(trace) -> list[dict]:
     """Per round from a drained ``_trace_rounds``: the plan's seconds and
     the pushes' (from the end of this plan to the start of the next,
@@ -2814,6 +3503,7 @@ def main() -> int:
     from titan_tpu_torch.olap import graph500 as G
     from titan_tpu_torch.olap import snapshot as SN
     from titan_tpu_torch.olap.live import overlay as OV
+    from titan_tpu_torch.ops import epoch_merge as EM
     from titan_tpu_torch.ops import frontier as F
     from titan_tpu_torch.ops import seg_scan as S
 
@@ -2859,6 +3549,15 @@ def main() -> int:
     served = phase_serving_s22(F, P, FR, S, ref, card)["launches"]
     seg_rec["launches_by_path"]["serving"] = served["seg_scan"]
     seg_rec["launches"] = sum(seg_rec["launches_by_path"].values())
+    live_runs, lane_runs = ServedLaunches(F, S), ServedLaunches(F, S)
+    live = phase_live_s22(P, SN, OV, EM, ref, card, live_runs)
+    phase_interactive_s22(P, FR, PR, SN, ref, live, card, lane_runs)
+    del live
+    for path, runs in (("live", live_runs), ("interactive", lane_runs)):
+        check(runs.total["frontier_round"] > 0
+              and runs.total["batched_exhaust"] > 0, f"a kernel was never "
+              f"launched on the {path} path: {runs.total}")
+        say(f"phase 11: {path} launches {runs.total}")
     del ref               # and with it the s22 graph cached on the card
     torch.cuda.empty_cache()
     g, hg, rec = phase_main(F, P, G, main_build, card)
@@ -2872,9 +3571,15 @@ def main() -> int:
     rec["launches_by_path"] = {"bfs": rec["launches"], **paths,
                                "wcc_peel_s22": peel22,
                                "wcc_peel_s26": peel26,
-                               "serving": served["frontier_round"]}
+                               "serving": served["frontier_round"],
+                               "live": live_runs.total["frontier_round"],
+                               "interactive":
+                                   lane_runs.total["frontier_round"]}
     rec["launches"] = sum(rec["launches_by_path"].values())
-    x_rec["launches_by_path"]["serving"] = served["batched_exhaust"]
+    x_rec["launches_by_path"].update(
+        serving=served["batched_exhaust"],
+        live=live_runs.total["batched_exhaust"],
+        interactive=lane_runs.total["batched_exhaust"])
     x_rec["launches"] = sum(x_rec["launches_by_path"].values())
     print(json.dumps({"kernels": [rec, seg_rec, x_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -222,13 +222,15 @@ class _Noop(DenseProgram):
 def test_computer_raises_for_what_is_not_ported(monkeypatch):
     _, _, pc, ps = _pair("random", "directed")
     prog = _Noop()
-    # the scheduler is ported; its interactive lane is not
+    # the scheduler and its interactive lane are ported: the lane runs on
+    # the computer's device
     sched = pc.scheduler(autostart=False, hbm_budget_bytes=1e12)
     try:
-        with pytest.raises(NotImplementedError, match="interactive"):
-            sched.interactive()
+        lane = sched.interactive()
+        assert lane is sched.interactive() and lane.device == pc.device
     finally:
         sched.close()
+    assert lane.closed
     with pytest.raises(NotImplementedError, match="multi-device"):
         PE.run_sharded(prog, ps)
     with pytest.raises(ValueError, match="fixed snapshot"):

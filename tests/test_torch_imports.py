@@ -40,7 +40,10 @@ def test_the_port_scripts_are_scanned():
 
 SERVING = [("olap", "serving", m) for m in (
     "__init__", "autotune", "batcher", "hbm", "jobs", "pool", "scheduler",
-    "tenants")] + [("obs", m) for m in (
+    "tenants")] + [("olap", "serving", "interactive", m) for m in (
+        "__init__", "collector", "compile", "scheduler")] + [
+    ("olap", "live", m) for m in ("__init__", "compactor", "overlay")] + [
+    ("ops", "epoch_merge")] + [("obs", m) for m in (
         "__init__", "devprof", "flightrec", "slo", "tracing")] + [
     ("utils", "__init__"), ("utils", "metrics")]
 
@@ -53,15 +56,21 @@ def test_the_serving_obs_and_utils_modules_are_scanned():
 
 
 def test_importing_the_serving_layer_loads_no_jax():
-    """At run time too: importing the serving layer, the observability
-    plane and the metrics registry in a fresh interpreter loads no module
-    of jax or titan_tpu (imports inside functions included, since the
-    scheduler runs some on its worker)."""
+    """At run time too: importing the serving layer, its interactive lane,
+    the live plane's compactor and epoch merge, the observability plane
+    and the metrics registry in a fresh interpreter loads no module of
+    jax or titan_tpu (imports inside functions included, since the
+    scheduler and the lane run some on their workers)."""
     code = (
         "import sys\n"
         "import titan_tpu_torch.olap.serving as S\n"
         "import titan_tpu_torch.olap.serving.autotune, "
         "titan_tpu_torch.obs.devprof, titan_tpu_torch.obs.flightrec\n"
+        "import titan_tpu_torch.olap.serving.interactive.collector, "
+        "titan_tpu_torch.olap.serving.interactive.compile, "
+        "titan_tpu_torch.olap.serving.interactive.scheduler\n"
+        "import titan_tpu_torch.olap.live.compactor, "
+        "titan_tpu_torch.ops.epoch_merge\n"
         "import titan_tpu_torch.utils.metrics\n"
         "import numpy as np\n"
         "from titan_tpu_torch.olap import snapshot as SN\n"
@@ -70,6 +79,11 @@ def test_importing_the_serving_layer_loads_no_jax():
         "                   device='cpu', hbm_budget_bytes=1e9)\n"
         "j = s.submit(JobSpec(kind='bfs', params={'source_dense': 0}))\n"
         "assert j.wait(60) and j.state.value == 'done', j.error\n"
+        "from titan_tpu_torch.olap.serving.interactive import "
+        "plan_from_wire\n"
+        "r = s.interactive().submit(plan_from_wire({'start': [0], "
+        "'hops': 2, 'terminal': 'count'}))\n"
+        "assert r['result'] == 1, r\n"
         "s.close()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'titan_tpu'))\n"

@@ -137,14 +137,14 @@ def test_pool_leases_the_fixed_snapshot():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"graph": object()}, "6b"), ({"live": object()}, "item 7")])
+    ({"graph": object()}, "6b"), ({"live": object()}, "LiveGraphPlane")])
 def test_pool_refuses_what_is_not_ported(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         SnapshotPool(snapshot=_snap(), **kw)
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "item 9"), ({"live": object()}, "item 7"),
+    ({"mesh": object()}, "item 9"), ({"live": object()}, "items 6b and 8"),
     ({"graph": object(), "snapshot": None}, "6b")])
 def test_scheduler_refuses_what_is_not_ported(kw, item):
     kw.setdefault("snapshot", _snap())
@@ -153,12 +153,18 @@ def test_scheduler_refuses_what_is_not_ported(kw, item):
 
 
 def test_interactive_lane_names_its_roadmap_item():
+    """The lane is ported (ROADMAP queue 1, item 8's interactive part):
+    one lane a scheduler, refused once the scheduler is closed; the
+    mesh-placed batcher still names item 9."""
     s = JobScheduler(snapshot=_snap(), device="cpu", autostart=False)
     try:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            s.interactive()
+        lane = s.interactive()
+        assert lane is s.interactive() and not lane.closed
     finally:
         s.close()
+    assert lane.closed
+    with pytest.raises(RuntimeError, match="closed"):
+        s.interactive()
     with pytest.raises(NotImplementedError, match="item 9"):
         PB.Batcher(mesh=object(), device="cpu")
 

@@ -28,3 +28,13 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the host")
     return dev
+
+
+def cache_key(device) -> torch.device:
+    """The key of a per-device cache on a snapshot: ``device`` resolved,
+    and a CUDA device without an index taken as the current one, so
+    ``"cuda"`` and ``"cuda:0"`` find the same entry."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

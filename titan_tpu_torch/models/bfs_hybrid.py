@@ -38,7 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from titan_tpu_torch.device import INF, next_pow2, resolve_device
+from titan_tpu_torch.device import INF, cache_key, next_pow2, resolve_device
 from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.ops.compaction import (CLAIM_SENTINEL, claim_dedup,
                                             claim_reset, compact_ids,
@@ -108,9 +108,7 @@ def build_chunked_csr(snap, device=None) -> dict:
     own cache on it. A snapshot that cannot take the attribute is built
     every call. Each upload counts once on ``obs/devprof``'s
     ``bfs.chunked_csr`` H2D site."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = cache_key(device)
     cache = getattr(snap, "_hybrid_csr_by_device", None)
     if cache is not None and dev in cache:
         return cache[dev]

@@ -23,6 +23,9 @@ multi-source batching on one card (the port's copy of
                   Controller journals bounded knob decisions (shadow by
                   default).
 * ``tenants``   — per-tenant attribution and quota admission.
+* ``interactive`` — the point-query lane behind
+                  ``JobScheduler.interactive()``: bounded chains fused
+                  into one hops batch, personalized PageRank.
 
 ``JobScheduler(snapshot=..., device=None)`` runs on CUDA and raises
 without a card; pass ``device="cpu"`` for the plain PyTorch path.

@@ -6,8 +6,10 @@ externally managed) that every ``acquire()`` leases as-is; leases are
 counted so ``stats()`` reports them. The JAX pool's graph-backed path —
 one snapshot per (labels, edge_keys, directed) built from the OLTP graph
 and refreshed by epoch — needs ``snapshot.build`` (ROADMAP queue 1, item
-6b), and its live plane (``live=``) the epoch compactor (item 7); both
-raise ``NotImplementedError`` here.
+6b), and its live plane (``live=``) the plane itself (``olap/live/
+plane.py``, items 6b and 8); both raise ``NotImplementedError`` here.
+As in the JAX package, the fixed snapshot is leased before ``labels``
+or ``directed`` are looked at, so it answers every label set.
 """
 
 from __future__ import annotations
@@ -51,8 +53,9 @@ class SnapshotPool:
     def __init__(self, graph=None, snapshot=None, live=None):
         if live is not None:
             raise NotImplementedError(
-                "SnapshotPool(live=...): the live plane is not ported yet "
-                "(ROADMAP queue 1, item 7)")
+                "SnapshotPool(live=...): the live plane (LiveGraphPlane, "
+                "olap/live/plane.py) is not ported yet: it builds its "
+                "snapshots from a graph (ROADMAP queue 1, items 6b and 8)")
         if graph is not None:
             raise NotImplementedError(
                 "SnapshotPool(graph=...): building snapshots from a graph "

@@ -89,10 +89,14 @@ stream; ``start()`` loads the kernel libraries on the caller's thread
 before the worker exists, and ``close()`` joins the worker before it
 returns, so the caller may free the snapshot afterwards.
 
+The interactive point-query lane (``interactive()``,
+olap/serving/interactive) is created on first use and shares this
+scheduler's pool, ledger, tenants, tracer and profiler.
+
 Not ported: the graph-backed pool (``graph=``, ROADMAP queue 1, item
-6b), the live plane (``live=``, item 7), mesh placement (``mesh=``,
-item 9) and the interactive lane (``interactive()``, item 8); each
-raises NotImplementedError.
+6b), the live plane that owns an overlay and its compactor (``live=``,
+``olap/live/plane.py``, items 6b and 8) and mesh placement (``mesh=``,
+item 9); each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -144,6 +148,9 @@ class JobScheduler:
                  profiler=None,
                  flight_dir: Optional[str] = None,
                  flight_capacity: int = 4096,
+                 interactive_window_s: Optional[float] = None,
+                 interactive_max_fuse: Optional[int] = None,
+                 interactive_max_depth: Optional[int] = None,
                  autotune: Optional[str] = None,
                  autotune_tick_s: Optional[float] = None,
                  autotune_clock=None,
@@ -151,8 +158,9 @@ class JobScheduler:
                  device=None):
         if live is not None:
             raise NotImplementedError(
-                "JobScheduler(live=...): the live plane is not ported yet "
-                "(ROADMAP queue 1, item 7)")
+                "JobScheduler(live=...): the live plane (LiveGraphPlane, "
+                "olap/live/plane.py) is not ported yet: it builds its "
+                "snapshots from a graph (ROADMAP queue 1, items 6b and 8)")
         if mesh is not None:
             raise NotImplementedError(
                 "JobScheduler(mesh=...): mesh-placed batches belong to the "
@@ -279,6 +287,15 @@ class JobScheduler:
             self.ckpt_store = CheckpointStore(checkpoint_dir,
                                               metrics=self._metrics)
             self._ckpt_ns = uuid.uuid4().hex[:12]
+        # the interactive lane (olap/serving/interactive), made on the
+        # first point query; the fuse window, occupancy and depth ceiling
+        # are scheduler configuration
+        self._interactive = None
+        self._interactive_cfg = {
+            k: v for k, v in (("window_s", interactive_window_s),
+                              ("max_fuse", interactive_max_fuse),
+                              ("max_depth", interactive_max_depth))
+            if v is not None}
         self._jobs: dict[str, Job] = {}
         self._heap: list = []
         self._seq = itertools.count()
@@ -312,12 +329,25 @@ class JobScheduler:
         return self
 
     def interactive(self):
-        """The interactive point-query lane of the JAX package is not
-        ported yet (ROADMAP queue 1, item 8's interactive lane)."""
-        raise NotImplementedError(
-            "JobScheduler.interactive(): the interactive lane "
-            "(olap/serving/interactive) is not ported yet (ROADMAP queue "
-            "1, item 8)")
+        """The scheduler's interactive point-query lane
+        (olap/serving/interactive.InteractiveLane), created on first use
+        under the scheduler's lock and refused once it is closed. On the
+        card the lane's two kernel libraries are built here, on the
+        caller's thread: a first build in the lane's worker would stall
+        the first query by the compile."""
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("scheduler is closed")
+            if self._interactive is None or self._interactive.closed:
+                from titan_tpu_torch.olap.serving.interactive import \
+                    InteractiveLane
+                if self.device.type == "cuda":
+                    from titan_tpu_torch.ops import frontier
+                    frontier.kernel_library()
+                    frontier.exhaust_library()
+                self._interactive = InteractiveLane(
+                    self, **self._interactive_cfg)
+            return self._interactive
 
     def close(self, timeout: float = 10.0) -> None:
         """Stop the worker and join it, fail what is still queued and
@@ -325,8 +355,13 @@ class JobScheduler:
         ``timeout`` seconds raises RuntimeError: its kernels may still
         read the snapshot's device tensors."""
         with self._cv:
+            # under the lock: interactive() creates the lane under it and
+            # refuses once _stop is set, so no lane escapes the close
             self._stop = True
+            lane = self._interactive
             self._cv.notify_all()
+        if lane is not None:
+            lane.close()
         if self._worker is not None:
             self._worker.join(timeout)
             if self._worker.is_alive():
@@ -357,18 +392,28 @@ class JobScheduler:
             self.profiler.uninstall()
 
     #: the snapshot's device caches the ledger charges: the chunked CSR
-    #: (models/bfs_hybrid.build_chunked_csr) and the engine's edge
-    #: arrays (olap/engine.device_graph), each a dict by device
-    _DEVICE_CACHES = ("_hybrid_csr_by_device", "_device_graphs")
+    #: (models/bfs_hybrid.build_chunked_csr), the engine's edge arrays
+    #: (olap/engine.device_graph) and the interactive lane's label masks
+    #: (olap/serving/interactive/compile.hop_label_masks), each a dict
+    #: by device
+    _DEVICE_CACHES = ("_hybrid_csr_by_device", "_device_graphs",
+                      "_hop_label_masks_by_device")
 
     def _evict(self, key) -> None:
         """Device-memory eviction: drop the snapshot's cached device
         tensors (the memory frees when the last reference dies; a later
-        job rebuilds and uploads them)."""
-        snap = self._evictable.pop(key, None)
-        if snap is None:
+        job rebuilds and uploads them). An ``(obj, attr)`` entry drops
+        that attribute and the lane's label masks instead: the
+        interactive lane's reversed layout registers itself this way."""
+        handle = self._evictable.pop(key, None)
+        if handle is None:
             return
-        for attr in self._DEVICE_CACHES:
+        if isinstance(handle, tuple):
+            snap, attrs = handle[0], (handle[1],
+                                      "_hop_label_masks_by_device")
+        else:
+            snap, attrs = handle, self._DEVICE_CACHES
+        for attr in attrs:
             if hasattr(snap, attr):
                 delattr(snap, attr)
 

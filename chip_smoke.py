@@ -8,7 +8,8 @@ Phases, each of which raises on failure:
 1. print the card's name and power limit; build the kernels from the
    sources in the checkout (``nvcc`` for ``csrc/frontier_round.cu``,
    ``csrc/batched_exhaust.cu`` and ``csrc/seg_scan.cu``, ``g++`` for the
-   native Graph500 library), all at once, and print each kernel's ptxas
+   native host library: the Graph500 pipeline and the store scan's
+   codec), all at once, and print each kernel's ptxas
    registers, shared memory and spills; start the host builds of the two
    Graph500 graphs (scale 22, then scale 26) in the background;
 2. hold the ``frontier_round`` CUDA kernel bit-equal to its plain PyTorch
@@ -168,7 +169,27 @@ Phases, each of which raises on failure:
    one batch against a direct ``pagerank_personalized_batched``
    (``PPR_RTOL``). The two paths' launches are ``launches_by_path
    ["live"]`` and ``["interactive"]`` of ``frontier_round`` and
-   ``batched_exhaust``.
+   ``batched_exhaust``;
+12. bench.py's ``store_ingest`` stage at s22 (after phase 11, before the
+   s26 phases): ``olap/bulk.ingest_rmat_store`` bulk-loads the R-MAT
+   edges (phase 5's generator, scale, edge factor and seed) into
+   ``titan_tpu_torch.open("inmemory")`` and scans them back into a
+   symmetric snapshot; bench.py's keys (``store_ingest_s22``) and the
+   host's peak RSS are printed. The snapshot's ``vertex_ids`` are the
+   loader's, ascending; its (src, dst) multiset is the generated edges
+   plus their reverse (duplicates and self-loops kept; sorted on the
+   card). Its chunked CSR and BFS from bench.py's source equal the BFS on
+   phase 5's generated graph (``bulk.dist_match``). Then
+   ``g.compute(backend="gpu")``: ``snapshot(directed=False)`` built
+   through the graph entry, 20 PageRank supersteps through ``seg_scan``
+   within ``PAGERANK_RTOL`` of a float64 scipy PageRank over the same
+   arrays, two BFS jobs through ``computer.scheduler()`` (the
+   graph-backed pool) equal to the direct call; a transaction of
+   ``STORE_ADDS`` added and ``STORE_REMOVES`` removed edges leaves both
+   snapshots stale, and the BFS on the ``refresh()``ed snapshot equals
+   the BFS on the ``rebuild_in_place()``d one. The path's launches are
+   ``launches_by_path["store"]``; ``frontier_round`` and ``seg_scan`` must
+   be above zero. The store and its snapshots are freed before s26.
 
 The line before the last is the ``{"kernels": [...]}`` record of the
 three kernels (each record's ``launches`` sums its paths, listed under
@@ -3422,6 +3443,235 @@ def phase_interactive_s22(P, FR, PR, SN, ref, live, card, launches) -> dict:
     return stats
 
 
+#: bench.py's store_ingest stage at the engine's scale (s22), its edge
+#: factor and seed, bulk-loaded into the port's in-memory store
+STORE_SCALE = ENGINE_SCALE
+#: the freshness commit of phase 12: edges added and removed
+STORE_ADDS, STORE_REMOVES = 64, 4
+
+
+def rss_bytes() -> int:
+    """This process's resident set."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class PeakRss(threading.Thread):
+    """Samples this process's resident set every 0.2 s until ``stop()``;
+    ``first`` is the first sample and ``peak`` the largest, in bytes."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.first = self.peak = rss_bytes()
+        self._done = threading.Event()
+        self.start()
+
+    def run(self):
+        while not self._done.wait(0.2):
+            self.peak = max(self.peak, rss_bytes())
+
+    def stop(self) -> int:
+        self._done.set()
+        self.join(5)
+        return self.peak
+
+
+def freshness_commit(g, snap, rng) -> None:
+    """One transaction through the graph's tx API: ``STORE_ADDS`` edges
+    between random vertices and ``STORE_REMOVES`` removed out-edges of
+    low-degree vertices (their rows are short to read)."""
+    vids = snap.vertex_ids
+    tx = g.new_transaction()
+    for a, b in rng.integers(0, snap.n, size=(STORE_ADDS, 2)):
+        tx.vertex(int(vids[a])).add_edge("related", tx.vertex(int(vids[b])))
+    low = np.flatnonzero((snap.out_degree >= 2) & (snap.out_degree <= 4))
+    removed = 0
+    for v in rng.choice(low, size=len(low), replace=False).tolist():
+        out = list(tx.vertex(int(vids[v])).out_edges("related"))
+        if out:
+            out[0].remove()
+            removed += 1
+        if removed == STORE_REMOVES:
+            break
+    check(removed == STORE_REMOVES, f"only {removed} edges to remove")
+    tx.commit()
+
+
+def phase_store_ingest(P, G, ref, card, runs) -> dict:
+    """Phase 12, bench.py's store_ingest stage at s22 (``bench.py:992``):
+    the R-MAT edges bulk-loaded into ``titan_tpu_torch.open("inmemory")``
+    and scanned back into a symmetric snapshot (``ingest_rmat_store``),
+    its arrays checked against the generated edges, its BFS against the
+    BFS on phase 5's generated graph; then ``graph.compute()``: PageRank
+    through ``seg_scan``, two BFS jobs through the graph-backed
+    scheduler, a freshness commit, ``refresh()`` against
+    ``rebuild_in_place()``. ``runs`` counts the main path's launches; the comparisons run outside it. Returns
+    the bench.py record."""
+    from titan_tpu_torch import native
+    from titan_tpu_torch.device import INF
+    from titan_tpu_torch.models import pagerank as MP
+    from titan_tpu_torch.olap import bulk as B
+    from titan_tpu_torch.olap.api import JobSpec
+    from titan_tpu_torch.utils.metrics import MetricManager
+
+    dev = torch.device("cuda")
+    hg, scale = ref["hg"], STORE_SCALE
+    n, m = 1 << scale, (1 << scale) * EDGE_FACTOR
+    # bench.py:1055-1079: the dists compare only when the reference graph
+    # and the ingest came from the same generator, scale and seed
+    made = (hg.get("generator"), int(hg["scale"]), hg.get("edge_factor"),
+            hg.get("seed"))
+    check(made == ("native", scale, EDGE_FACTOR, SEED), f"the reference "
+          f"graph was made by {made}, the ingest by ('native', {scale}, "
+          f"{EDGE_FACTOR}, {SEED}): the BFS distances are not comparable")
+    source = sample_sources(hg["deg"], 1)[0]
+    gref = G.graph_from_numpy(hg, dev)
+    dist_ref, levels_ref = P.frontier_bfs_hybrid(gref, source,
+                                                 return_device=True,
+                                                 device=dev)
+    del gref
+    rss = PeakRss()
+
+    t0 = time.time()
+    res = B.ingest_rmat_store(scale, edge_factor=EDGE_FACTOR, seed=SEED)
+    g, isnap = res["graph"], res["snapshot"]
+    sched = None
+    try:
+        say(f"phase 12: s{scale} ingest {res['ingest_s']:.1f} s "
+            f"(bulk_load_adjacency, {res['m']} edges into the in-memory "
+            f"store), scan into a symmetric snapshot {res['scan_s']:.1f} s "
+            f"({isnap.n} vertices, {isnap.num_edges} rows)")
+        # ---- the snapshot's arrays on the host against the generated edges
+        vids = isnap.vertex_ids
+        check(isnap.n == n and bool((np.diff(vids) > 0).all())
+              and np.array_equal(vids, res["vertex_ids"]),
+              "the snapshot's vertex_ids are not the loader's, ascending")
+        src, dst = native.rmat_gen(m, scale, seed=SEED)
+        want = torch.from_numpy(np.concatenate([src, dst])).to(dev)
+        wdst = torch.from_numpy(np.concatenate([dst, src])).to(dev)
+        del src, dst
+        want = want.long() * n + wdst
+        del wdst
+        got = torch.from_numpy(isnap.src).to(dev).long() * n \
+            + torch.from_numpy(isnap.dst).to(dev)
+        same = bool(torch.equal(torch.sort(want).values,
+                                torch.sort(got).values))
+        del want, got
+        check(same, "the store snapshot's (src, dst) multiset is not the "
+              "generated edges plus their reverse")
+        # ---- bench.py's BFS over the store snapshot
+        t1 = time.time()
+        csr = P.build_chunked_csr(isnap, dev)
+        torch.cuda.synchronize()
+        csr_s = time.time() - t1
+        t2 = time.time()
+        dist, levels = runs.run(lambda: P.frontier_bfs_hybrid(
+            isnap, source, return_device=True, device=dev))
+        torch.cuda.synchronize()
+        bfs_s = time.time() - t2
+        match = B.dist_match(dist, dist_ref, int(INF))
+        check(match, "the store snapshot's BFS differs from the BFS on the "
+              "generated graph")
+        del csr
+        rec = {"n_vertices": res["n"], "m_edges_ingested": res["m"],
+               "ingest_seconds": round(res["ingest_s"], 1),
+               "scan_snapshot_seconds": round(res["scan_s"], 1),
+               "csr_build_upload_seconds": round(csr_s, 1),
+               "bfs_seconds": round(bfs_s, 3),
+               "bfs_levels": levels, "bfs_levels_ref": levels_ref,
+               "dist_matches_generated": match,
+               "total_seconds": round(time.time() - t0, 1)}
+        say(f"phase 12: store_ingest_s{scale} " + json.dumps(rec))
+        rec["scale"] = scale
+
+        # ---- graph.compute(): the graph entry's own snapshot
+        comp = g.compute(backend="gpu", device=dev)
+        t3 = time.time()
+        csnap = comp.snapshot(directed=False)
+        build_s = time.time() - t3
+        check(all(np.array_equal(getattr(csnap, f), getattr(isnap, f))
+                  for f in ("vertex_ids", "src", "dst", "indptr_in",
+                            "out_degree")),
+              "compute().snapshot(directed=False) differs from the ingest's")
+        f64 = Background(lambda: host_pagerank(csnap, 0.85, 20))
+        pr = runs.run(lambda: MP.run(comp, 0.85, 20, 0.0, snapshot=csnap))
+        torch.cuda.synchronize()
+        rel = float(np.max(np.abs(pr["rank"] - f64.result())
+                           / f64.result()))
+        check(pr.iterations == 20 and rel <= PAGERANK_RTOL,
+              f"store PageRank differs from float64 by {rel}")
+        # ---- two BFS jobs through the graph-backed pool
+        sched = comp.scheduler(autostart=False, max_batch=BATCH_K,
+                               metrics=MetricManager())
+        srcs = sample_sources(hg["deg"], 2)
+        specs = [JobSpec(kind="bfs", params={"source": int(vids[s])},
+                         directed=False) for s in srcs]
+        jobs, served_s = runs.run(lambda: serve(sched, specs))
+        for j, s in zip(jobs, srcs):
+            check(j.state.value == "done", f"{j} {j.state} {j.error}")
+            d, _ = P.frontier_bfs_hybrid(csnap, s, device=dev)
+            check(np.array_equal(j.result["dist"], np.minimum(d, INF)),
+                  f"the served BFS from {s} differs from the direct call")
+        pool = sched.pool.stats()
+        check(pool["entries"] == 1, f"pool {pool}")
+        sched.close()
+        sched = None
+        say(f"phase 12: compute() on {card}: snapshot(directed=False) "
+            f"built in {build_s:.1f} s, PageRank 20 supersteps within "
+            f"{rel:.3g} of float64 scipy; 2 BFS jobs through the "
+            f"graph-backed scheduler in {served_s:.3f} s (its pool built "
+            f"its own snapshot), equal to the direct call")
+        # ---- freshness: a commit, refresh() against rebuild_in_place()
+        t4 = time.time()
+        freshness_commit(g, csnap, np.random.default_rng(SEED))
+        commit_s = time.time() - t4
+        check(csnap.stale and isnap.stale, "a committed snapshot is not "
+              "stale")
+        t5 = time.time()
+        stats = csnap.refresh()
+        refresh_s = time.time() - t5
+        check(stats == {"added_edges": STORE_ADDS,
+                        "removed_edges": STORE_REMOVES,
+                        "added_vertices": 0, "removed_vertices": 0},
+              f"refresh() applied {stats}")
+        d_fresh, _ = runs.run(lambda: P.frontier_bfs_hybrid(
+            csnap, source, return_device=True, device=dev))
+        t6 = time.time()
+        isnap.rebuild_in_place()
+        rebuild_s = time.time() - t6
+        d_rebuilt, _ = runs.run(lambda: P.frontier_bfs_hybrid(
+            isnap, source, return_device=True, device=dev))
+        check(not csnap.stale and not isnap.stale
+              and csnap.epoch == isnap.epoch == g.mutation_epoch,
+              "a refreshed or rebuilt snapshot is stale")
+        check(all(np.array_equal(getattr(csnap, f), getattr(isnap, f))
+                  for f in ("vertex_ids", "indptr_in", "out_degree"))
+              and csnap.num_edges == res["m"] * 2 + 2 * (STORE_ADDS
+                                                         - STORE_REMOVES),
+              "the refreshed CSR differs from the rebuilt one")
+        check(B.dist_match(d_fresh, d_rebuilt, int(INF)), "the BFS on the "
+              "refreshed snapshot differs from the BFS on the rebuilt one")
+        rec.update(peak_rss_bytes=rss.stop(), start_rss_bytes=rss.first,
+                   compute_snapshot_seconds=round(build_s, 1),
+                   commit_seconds=round(commit_s, 2),
+                   refresh_seconds=round(refresh_s, 2),
+                   rebuild_seconds=round(rebuild_s, 1),
+                   phase_seconds=round(time.time() - t0, 1))
+        say(f"phase 12: {STORE_ADDS} added and {STORE_REMOVES} removed "
+            f"edges committed in {commit_s:.2f} s; both snapshots stale; "
+            f"refresh() {refresh_s:.2f} s, rebuild_in_place() "
+            f"{rebuild_s:.1f} s, their BFS from {source} equal; the host's "
+            f"resident set {rec['start_rss_bytes']} B at the phase's start, "
+            f"{rec['peak_rss_bytes']} B at its peak")
+        say(f"phase 12: record " + json.dumps(rec))
+        return rec
+    finally:
+        rss.stop()
+        if sched is not None:
+            sched.close()
+        g.close()
+
+
 def sssp_round_split(trace) -> list[dict]:
     """Per round from a drained ``_trace_rounds``: the plan's seconds and
     the pushes' (from the end of this plan to the start of the next,
@@ -3548,7 +3798,6 @@ def main() -> int:
     peel22 = phase_frontier_s22(F, P, G, FR, PR, ref, card, superstep_s)
     served = phase_serving_s22(F, P, FR, S, ref, card)["launches"]
     seg_rec["launches_by_path"]["serving"] = served["seg_scan"]
-    seg_rec["launches"] = sum(seg_rec["launches_by_path"].values())
     live_runs, lane_runs = ServedLaunches(F, S), ServedLaunches(F, S)
     live = phase_live_s22(P, SN, OV, EM, ref, card, live_runs)
     phase_interactive_s22(P, FR, PR, SN, ref, live, card, lane_runs)
@@ -3558,6 +3807,13 @@ def main() -> int:
               and runs.total["batched_exhaust"] > 0, f"a kernel was never "
               f"launched on the {path} path: {runs.total}")
         say(f"phase 11: {path} launches {runs.total}")
+    store_runs = ServedLaunches(F, S)
+    phase_store_ingest(P, G, ref, card, store_runs)
+    check(store_runs.total["frontier_round"] > 0
+          and store_runs.total["seg_scan"] > 0, f"a kernel was never "
+          f"launched on the store path: {store_runs.total}")
+    say(f"phase 12: store launches {store_runs.total}")
+    gc.collect()          # the store and its snapshots, before s26
     del ref               # and with it the s22 graph cached on the card
     torch.cuda.empty_cache()
     g, hg, rec = phase_main(F, P, G, main_build, card)
@@ -3575,11 +3831,15 @@ def main() -> int:
                                "live": live_runs.total["frontier_round"],
                                "interactive":
                                    lane_runs.total["frontier_round"]}
+    rec["launches_by_path"]["store"] = store_runs.total["frontier_round"]
     rec["launches"] = sum(rec["launches_by_path"].values())
+    seg_rec["launches_by_path"]["store"] = store_runs.total["seg_scan"]
+    seg_rec["launches"] = sum(seg_rec["launches_by_path"].values())
     x_rec["launches_by_path"].update(
         serving=served["batched_exhaust"],
         live=live_runs.total["batched_exhaust"],
-        interactive=lane_runs.total["batched_exhaust"])
+        interactive=lane_runs.total["batched_exhaust"],
+        store=store_runs.total["batched_exhaust"])
     x_rec["launches"] = sum(x_rec["launches_by_path"].values())
     print(json.dumps({"kernels": [rec, seg_rec, x_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {

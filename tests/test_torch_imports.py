@@ -94,6 +94,58 @@ def test_importing_the_serving_layer_loads_no_jax():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+#: the OLTP spine and the store-to-card path, the port's own copies
+SPINE = [("errors",), ("factory",), ("utils", "times"), ("utils", "varint"),
+         ("native", "__init__"), ("olap", "__init__"), ("olap", "bulk"),
+         ("olap", "snapshot"), ("indexing", "serializer")] + [
+    ("config", m) for m in ("__init__", "configuration", "defaults",
+                            "options")] + [
+    ("codec", m) for m in ("__init__", "dataio", "relation_ids",
+                           "attributes", "edges")] + [
+    ("ids", m) for m in ("__init__", "idmanager", "assigner", "authority",
+                         "placement", "pool")] + [
+    ("storage", m) for m in ("__init__", "api", "inmemory", "cache",
+                             "config_store", "locking", "log", "tx",
+                             "backend", "registry")] + [
+    ("core", m) for m in ("__init__", "defs", "attribute", "system_types",
+                          "schema", "elements", "relations", "tx",
+                          "changes", "management", "graph")]
+
+
+def test_the_graph_spine_is_scanned():
+    for parts in SPINE:
+        path = ROOT.joinpath("titan_tpu_torch", *parts[:-1],
+                             parts[-1] + ".py")
+        assert path in FILES, path
+
+
+def test_a_graph_run_loads_no_jax():
+    """In a fresh interpreter: open("inmemory"), a bulk load, a snapshot
+    build and one compute() on the CPU load no module of jax or
+    titan_tpu."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import titan_tpu_torch\n"
+        "from titan_tpu_torch.olap import bulk, snapshot\n"
+        "from titan_tpu_torch.models import pagerank\n"
+        "g = titan_tpu_torch.open('inmemory')\n"
+        "src = np.arange(32); dst = (src * 7 + 1) % 32\n"
+        "bulk.bulk_load_adjacency(g, src, dst, n=32)\n"
+        "snap = snapshot.build(g, directed=False)\n"
+        "assert snap.n == 32 and snap.num_edges == 64\n"
+        "r = pagerank.run(g.compute(device='cpu'))\n"
+        "assert r.iterations == 20 and abs(r['rank'].sum() - 1) < 1e-4\n"
+        "g.close()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'titan_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_guard_sees_the_prefix_correctly():
     assert _forbidden("titan_tpu.native") and _forbidden("jax.numpy")
     assert not _forbidden("titan_tpu_torch.ops.frontier")

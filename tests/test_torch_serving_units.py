@@ -137,17 +137,41 @@ def test_pool_leases_the_fixed_snapshot():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"graph": object()}, "6b"), ({"live": object()}, "LiveGraphPlane")])
+    # item 6b is ported: a graph beside a fixed snapshot is kept, and the
+    # fixed snapshot is leased, as in the JAX pool
+    pytest.param({"graph": object()}, None, id="kw0-6b"),
+    pytest.param({"live": object()}, "LiveGraphPlane",
+                 id="kw1-LiveGraphPlane")])
 def test_pool_refuses_what_is_not_ported(kw, item):
+    if item is None:
+        snap = _snap()
+        pool = SnapshotPool(snapshot=snap, **kw)
+        assert pool.graph is kw["graph"]
+        with pool.acquire(labels=["x"]) as s:
+            assert s is snap
+        assert pool.ready() == (True, "fixed snapshot resident")
+        return
     with pytest.raises(NotImplementedError, match=item):
         SnapshotPool(snapshot=_snap(), **kw)
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "item 9"), ({"live": object()}, "items 6b and 8"),
-    ({"graph": object(), "snapshot": None}, "6b")])
+    pytest.param({"mesh": object()}, "item 9", id="kw0-item 9"),
+    pytest.param({"live": object()}, "item 8", id="kw1-items 6b and 8"),
+    # item 6b is ported: a scheduler over a graph builds its pool's
+    # snapshots from it, lazily, at the first job
+    pytest.param({"graph": object(), "snapshot": None}, None,
+                 id="kw2-6b")])
 def test_scheduler_refuses_what_is_not_ported(kw, item):
     kw.setdefault("snapshot", _snap())
+    if item is None:
+        s = JobScheduler(device="cpu", autostart=False, **kw)
+        try:
+            assert s.pool.graph is kw["graph"]
+            assert s.pool.stats()["snapshots"] == 0
+        finally:
+            s.close()
+        return
     with pytest.raises(NotImplementedError, match=item):
         JobScheduler(device="cpu", autostart=False, **kw)
 

@@ -1,0 +1,235 @@
+"""The port's OLTP spine (titan_tpu_torch.open("inmemory")) against the
+JAX package's: the same seeded DDL and transactions on both graphs give
+byte-equal edgestore rows, equal vertex and relation ids, equal mutation
+epochs and equal change payloads. The other stores (ids, locks, config)
+carry the instance id and timestamps, so they are compared structurally
+only. What the port leaves out raises NotImplementedError naming ROADMAP
+queue 1, item 11."""
+
+import numpy as np
+import pytest
+
+import titan_tpu
+import titan_tpu_torch
+from titan_tpu.core.defs import Cardinality as JCard, Multiplicity as JMult
+from titan_tpu.ids.placement import SimpleBulkPlacement as JPlace
+from titan_tpu_torch.core.defs import (Cardinality as PCard,
+                                       Multiplicity as PMult)
+from titan_tpu_torch.ids.placement import SimpleBulkPlacement as PPlace
+
+PKGS = {"jax": (titan_tpu, JCard, JMult, JPlace),
+        "port": (titan_tpu_torch, PCard, PMult, PPlace)}
+
+
+def open_twin(which: str, seed: int = 11, config=None):
+    """A graph whose partition placement is seeded, so both packages give
+    the same ids for the same operations."""
+    pkg, _, _, place = PKGS[which]
+    g = pkg.open(config or "inmemory")
+    g.id_assigner.placement = place(g.idm.num_partitions, batch_size=5,
+                                    seed=seed)
+    return g
+
+
+def make_schema(g, which: str) -> None:
+    _, card, mult, _ = PKGS[which]
+    m = g.management()
+    m.make_edge_label("knows", mult.MULTI)
+    m.make_edge_label("likes", mult.SIMPLE)
+    m.make_edge_label("mother", mult.MANY2ONE)
+    m.make_property_key("name", str, card.SINGLE)
+    m.make_property_key("age", int, card.SINGLE)
+    m.make_property_key("tag", str, card.LIST)
+    m.make_vertex_label("person")
+    m.build_index("by_name").add_key("name").build_composite_index()
+    m.commit()
+
+
+def run_ops(g, which: str, seed: int) -> dict:
+    """A seeded sequence of commits: vertices with properties, edges of
+    three labels, then removals of edges, a vertex and a property.
+    Returns the ids, relation ids and change payloads it saw."""
+    make_schema(g, which)
+    _, q = g.subscribe_changes()
+    rng = np.random.default_rng(seed)
+    tx = g.new_transaction()
+    vs = [tx.add_vertex("person" if i % 3 else None, name=f"v{i}",
+                        age=int(rng.integers(0, 90))) for i in range(24)]
+    for v in vs[::4]:
+        v.property("tag", "a")
+        v.property("tag", "b")
+    edges = []
+    for _ in range(60):
+        a, b = (int(x) for x in rng.integers(0, len(vs), 2))
+        edges.append(vs[a].add_edge("knows", vs[b], since=int(a * b)))
+    for a in range(0, 20, 2):
+        vs[a].add_edge("likes", vs[a + 1])
+    vs[5].add_edge("mother", vs[7])
+    tx.commit()
+    vids = [v.id for v in vs]
+    rel_ids = sorted(e.rel.relation_id for e in edges)
+    tx = g.new_transaction()
+    for k in rng.choice(len(vids), 4, replace=False):
+        v = tx.vertex(vids[int(k)])
+        for e in list(v.out_edges("knows"))[:1]:
+            e.remove()
+    tx.vertex(vids[3]).remove()
+    tx.vertex(vids[6]).property("age", 7)
+    tx.commit()
+    tx = g.new_transaction()
+    tx.vertex(vids[0]).add_edge("knows", tx.vertex(vids[1]))
+    tx.commit()
+    return {"vids": vids, "rel_ids": rel_ids, "payloads": list(q),
+            "epoch": g.mutation_epoch}
+
+
+def edgestore_rows(g) -> list:
+    store = g.backend.edge_store.store
+    return [(k, list(c), list(v)) for k, c, v in
+            store.scan_rows_packed(None)]
+
+
+@pytest.fixture(scope="module", params=[1, 2])
+def twins(request):
+    seed = request.param
+    out = {}
+    for which in PKGS:
+        g = open_twin(which)
+        out[which] = (g, run_ops(g, which, seed))
+    yield out
+    for g, _ in out.values():
+        g.close()
+
+
+def test_edgestore_rows_are_byte_equal(twins):
+    rows_j = edgestore_rows(twins["jax"][0])
+    rows_p = edgestore_rows(twins["port"][0])
+    assert len(rows_j) > 24
+    assert rows_p == rows_j
+
+
+def test_ids_epochs_and_payloads_are_equal(twins):
+    (_, j), (_, p) = twins["jax"], twins["port"]
+    assert p["vids"] == j["vids"]
+    assert p["rel_ids"] == j["rel_ids"]
+    assert p["epoch"] == j["epoch"] == 3      # the three data commits
+    strip = [{k: v for k, v in x.items() if k != "time"}
+             for x in j["payloads"]]
+    assert [{k: v for k, v in x.items() if k != "time"}
+            for x in p["payloads"]] == strip
+    assert len(strip) == 3
+
+
+def test_schema_type_ids_and_reads_are_equal(twins):
+    (gj, j), (gp, _) = twins["jax"], twins["port"]
+    for name in ("knows", "likes", "mother", "name", "age", "tag",
+                 "person", "by_name"):
+        assert gp.schema.get_by_name(name).id == \
+            gj.schema.get_by_name(name).id, name
+    txj, txp = gj.new_transaction(), gp.new_transaction()
+    try:
+        for vid in j["vids"]:
+            vj, vp = txj.vertex(vid), txp.vertex(vid)
+            assert (vj is None) == (vp is None)
+            if vj is None:
+                continue
+            assert vp.value("age") == vj.value("age")
+            assert sorted(vp.values("tag")) == sorted(vj.values("tag"))
+            assert sorted(w.id for w in vp.out("knows")) == \
+                sorted(w.id for w in vj.out("knows"))
+    finally:
+        txj.rollback()
+        txp.rollback()
+
+
+def test_other_stores_agree_structurally(twins):
+    """The id, lock and config stores hold the same row keys and column
+    counts (their values carry the instance id and timestamps)."""
+    for name in ("graphindex", "system_ids", "system_properties"):
+        shapes = []
+        for g, _ in twins.values():
+            store = g.backend.manager.open_database(name)
+            shapes.append([(k, len(c)) for k, c, _ in
+                           store.scan_rows_packed(None)])
+        assert shapes[0] == shapes[1], name
+
+
+def test_change_queue_overflows_at_its_cap():
+    from titan_tpu_torch.config import defaults
+    from titan_tpu_torch.core.changes import CHANGE_QUEUE_CAP, ChangeQueue
+    assert CHANGE_QUEUE_CAP == defaults.TPU_CHANGE_BACKLOG.default == 10_000
+    q = ChangeQueue(cap=2)
+    for e in (1, 2, 3):
+        q.push({"epoch": e})
+    assert q.overflowed and len(q) == 0
+    q.reanchor()
+    q.push({"epoch": 4})
+    assert not q.overflowed and list(q) == [{"epoch": 4}]
+
+
+def test_listeners_are_held_weakly():
+    import gc
+    g = titan_tpu_torch.open("inmemory")
+    try:
+        token, q = g.subscribe_changes()
+        assert len(g._change_listeners) == 1
+        del q
+        gc.collect()
+        assert len(g._change_listeners) == 0
+        g.unsubscribe_changes(token)          # unknown tokens are fine
+    finally:
+        g.close()
+
+
+@pytest.mark.parametrize("backend", ["sqlite", "gdbm", "remote",
+                                     "remote-cluster"])
+def test_other_stores_name_their_roadmap_item(backend):
+    with pytest.raises(NotImplementedError, match="item 11"):
+        titan_tpu_torch.open({"storage.backend": backend,
+                              "storage.directory": "unused"})
+
+
+@pytest.mark.parametrize("config", [
+    {"tx.log-tx": True}, {"metrics.enabled": True},
+    {"index.search.backend": "memindex"}])
+def test_refused_options_name_their_roadmap_item(config):
+    with pytest.raises(NotImplementedError, match="item 11"):
+        titan_tpu_torch.open({"storage.backend": "inmemory", **config})
+
+
+@pytest.mark.parametrize("call", [
+    lambda g: g.traversal(), lambda g: g.query(),
+    lambda g: g.index_query("ix", "x"), lambda g: g.index_provider("s"),
+    lambda g: titan_tpu_torch.open_log_processors(g),
+    lambda g: g.compute(backend="host"), lambda g: g.compute(backend="tpu"),
+    lambda g: g.new_transaction().query(),
+    lambda g: g.add_vertex().query(),
+    lambda g: g.management().build_index("m").add_key("k")
+    .build_mixed_index("search"),
+    lambda g: g.management().update_index("ci", "reindex")],
+    ids=["traversal", "query", "index_query", "index_provider",
+         "open_log_processors", "host", "tpu", "tx.query", "vertex.query",
+         "mixed_index", "reindex"])
+def test_refused_methods_name_their_roadmap_item(call):
+    g = titan_tpu_torch.open("inmemory")
+    try:
+        m = g.management()
+        m.make_property_key("k", str)
+        m.build_index("ci").add_key("k").build_composite_index()
+        m.commit()
+        with pytest.raises(NotImplementedError, match="item 11"):
+            call(g)
+    finally:
+        g.close()
+
+
+def test_the_port_graph_defaults_to_the_gpu_computer(monkeypatch):
+    import torch
+    g = titan_tpu_torch.open("inmemory")
+    try:
+        assert type(g.compute(device="cpu")).__name__ == "GPUGraphComputer"
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            g.compute()
+    finally:
+        g.close()

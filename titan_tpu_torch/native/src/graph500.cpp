@@ -1,5 +1,8 @@
-// Graph500 host pipeline of the port: R-MAT edge generation and the
-// symmetrized, deduplicated, 8-aligned chunked CSR.
+// The port's native host library: the Graph500 pipeline (R-MAT edge
+// generation and the symmetrized, deduplicated, 8-aligned chunked CSR)
+// and the store scan's edge-column codec and counting sort
+// (tt_parse_heads, tt_bulk_read_uvar, tt_csr_build, tt_gather_i32; see
+// the codec section at the end).
 //
 // Copied from titan_tpu/native/src/titan_native.cpp (tt_rmat_gen,
 // tt_sym_chunked_csr and their helpers) and made multi-threaded, with
@@ -270,5 +273,161 @@ int64_t tt_sym_chunked_csr(const int32_t* src, const int32_t* dst, int64_t m,
 }
 
 void tt_free(void* p) { std::free(p); }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Edge-column codec and counting sort of the store scan
+// (olap/snapshot.build, from_arrays, out_csr), copied from
+// titan_tpu/native/src/titan_native.cpp unchanged.
+//
+// Byte formats decoded here MUST match titan_tpu_torch/utils/varint.py and
+// titan_tpu_torch/codec/relation_ids.py:
+//   * unsigned varint: MSB-first 7-bit groups, stop bit 0x80 on the LAST byte
+//   * prefixed varint (PREFIX_BITS=3): byte0 = [prefix:3 | continue:1 |
+//     top value bits:4]; continuation = plain unsigned varint, value =
+//     (head_bits << 7*ngroups) | rest
+//   * relation-type head: prefix = [user?:1 | dirclass:2]; dirclass
+//     0=property, 2=edge-out, 3=edge-in; encoded value = [count | is_edge:1]
+
+namespace {
+
+constexpr uint8_t kStop = 0x80;
+constexpr uint8_t kMask = 0x7F;
+constexpr int kPrefixBits = 3;
+constexpr int kDelta = 8 - kPrefixBits;  // value bits below the prefix in byte0
+
+// Ids are <= 63 bits, so more than 10 seven-bit groups is corruption (the
+// unterminated-varint guard of utils/varint.py): error instead of wrapping.
+constexpr int kMaxGroups = 10;
+
+// Decodes one MSB-first unsigned varint; returns the new position, or -1
+// on truncation or overrun.
+inline int64_t read_uvar(const uint8_t* p, int64_t pos, int64_t end,
+                         int64_t* out) {
+  uint64_t v = 0;
+  int groups = 0;
+  while (pos < end) {
+    if (++groups > kMaxGroups) return -1;
+    uint8_t b = p[pos++];
+    v = (v << 7) | (b & kMask);
+    if (b & kStop) {
+      *out = static_cast<int64_t>(v);
+      return pos;
+    }
+  }
+  return -1;
+}
+
+// Decodes a 3-bit-prefixed varint; returns the new position or -1.
+inline int64_t read_uvar_prefixed(const uint8_t* p, int64_t pos, int64_t end,
+                                  int64_t* value, int* prefix) {
+  if (pos >= end) return -1;
+  uint8_t first = p[pos++];
+  *prefix = first >> kDelta;
+  uint64_t v = first & ((1u << (kDelta - 1)) - 1);
+  if ((first >> (kDelta - 1)) & 1) {  // continue bit
+    int64_t rest;
+    int64_t start = pos;
+    pos = read_uvar(p, pos, end, &rest);
+    if (pos < 0) return -1;
+    int64_t ngroups = pos - start;
+    v = (v << (7 * ngroups)) | static_cast<uint64_t>(rest);
+  }
+  *value = static_cast<int64_t>(v);
+  return pos;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bulk MSB-first varint decode: one varint starting at each offsets[i],
+// bounded by bounds[i] (the owning entry's end: a varint must not run past
+// its entry into the next column's bytes). Fills values[i] and ends[i]
+// (the position after the varint). Returns m, or ~i (the bitwise-not of
+// the failing index) on corruption.
+int64_t tt_bulk_read_uvar(const uint8_t* data, int64_t data_len,
+                          const int64_t* offsets, const int64_t* bounds,
+                          int64_t m, int64_t* values, int64_t* ends) {
+  for (int64_t i = 0; i < m; ++i) {
+    int64_t bound = bounds[i] < data_len ? bounds[i] : data_len;
+    int64_t end = read_uvar(data, offsets[i], bound, &values[i]);
+    if (end < 0) return ~i;
+    ends[i] = end;
+  }
+  return m;
+}
+
+// Entry kinds produced by tt_parse_heads (native.KIND_* in Python).
+enum : uint8_t {
+  kKindSkip = 0,      // system / property / IN-edge column
+  kKindOutEdge = 1,   // user OUT edge: type_count + data_pos valid
+  kKindExists = 3,    // vertex-exists marker column
+};
+
+// Classifies every column and decodes its relation-type head. cols = the
+// concatenated column bytes; offs[m+1] = the entry boundaries;
+// exists_prefix (may be empty) marks the vertex-exists system column.
+// Outputs per entry: kind, type_count (valid for kind == 1), data_pos (the
+// byte just after the head, where the sort key / other vertex starts).
+// Returns m, or ~i on a corrupt entry i.
+int64_t tt_parse_heads(const uint8_t* cols, int64_t cols_len,
+                       const int64_t* offs, int64_t m,
+                       const uint8_t* exists_prefix, int64_t ep_len,
+                       uint8_t* kind, int64_t* type_count, int64_t* data_pos) {
+  (void)cols_len;
+  for (int64_t i = 0; i < m; ++i) {
+    int64_t pos = offs[i], end = offs[i + 1];
+    kind[i] = kKindSkip;
+    type_count[i] = 0;
+    data_pos[i] = pos;
+    if (ep_len > 0 && end - pos >= ep_len &&
+        std::memcmp(cols + pos, exists_prefix, ep_len) == 0) {
+      kind[i] = kKindExists;
+      continue;
+    }
+    int64_t value;
+    int prefix;
+    int64_t p2 = read_uvar_prefixed(cols, pos, end, &value, &prefix);
+    if (p2 < 0) return ~i;
+    bool user = (prefix & 4) != 0;
+    int dirclass = prefix & 3;
+    bool is_edge = (value & 1) != 0;
+    if (!user || dirclass != 2 || !is_edge) continue;  // not a user OUT edge
+    kind[i] = kKindOutEdge;
+    type_count[i] = value >> 1;
+    data_pos[i] = p2;
+  }
+  return m;
+}
+
+// Stable counting sort of edges by destination + CSR index + out-degrees
+// (the dst-sorted snapshot layout and, with src and dst swapped, out_csr).
+// order[e]: permutation making dst[order] ascending (stable); indptr[n+1];
+// out_degree[n]. scratch must hold n+1 int64 (caller-allocated).
+void tt_csr_build(const int32_t* src, const int32_t* dst, int64_t e, int64_t n,
+                  int64_t* order, int64_t* indptr, int32_t* out_degree,
+                  int64_t* scratch) {
+  std::memset(indptr, 0, sizeof(int64_t) * (n + 1));
+  std::memset(out_degree, 0, sizeof(int32_t) * n);
+  for (int64_t i = 0; i < e; ++i) {
+    ++indptr[dst[i] + 1];
+    ++out_degree[src[i]];
+  }
+  for (int64_t v = 0; v < n; ++v) indptr[v + 1] += indptr[v];
+  std::memcpy(scratch, indptr, sizeof(int64_t) * n);
+  for (int64_t i = 0; i < e; ++i) order[scratch[dst[i]]++] = i;
+}
+
+// Gathers int32 values through an int64 permutation: out[i] = in[order[i]].
+void tt_gather_i32(const int32_t* in, const int64_t* order, int64_t e,
+                   int32_t* out) {
+  for (int64_t i = 0; i < e; ++i) out[i] = in[order[i]];
+}
+
+// The library's ABI: 1 had the Graph500 pipeline only, 2 adds the codec
+// and the counting sort.
+int tt_abi_version(void) { return 2; }
 
 }  // extern "C"

@@ -138,8 +138,8 @@ class JobSpec:
     START — jobs still queued past it are EXPIRED. ``timeout_s`` bounds
     the run, checked at level and round boundaries.
     ``labels``/``edge_keys``/``directed`` select the snapshot (pool
-    parameters; the port's pool holds one fixed snapshot and ignores
-    them). ``directed=False`` is the default: the direction-optimizing
+    parameters; a pool over one fixed snapshot ignores them).
+    ``directed=False`` is the default: the direction-optimizing
     BFS needs a symmetric graph.
 
     Recovery: ``max_retries`` lets a RUNNING job that dies requeue as

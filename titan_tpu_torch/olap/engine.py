@@ -24,10 +24,11 @@ live job's ``message``, ``apply`` and ``done`` on its own row (the
 expressions of ``run_single``), and one ``seg_scan`` launch over the K
 rows of messages. A job that reports done freezes.
 
-``GPUGraphComputer`` is the counterpart of ``TPUGraphComputer`` for a
-fixed snapshot; ``run_async`` submits to its ``olap/serving``
-``JobScheduler``. The sharded engine is not ported yet (ROADMAP queue 1,
-item 9); nor is building a snapshot from a graph (item 6b).
+``GPUGraphComputer`` is the counterpart of ``TPUGraphComputer``: over a
+graph (``graph.compute()``) it builds one snapshot per parameter set,
+or it holds a fixed snapshot; ``run_async`` submits to its
+``olap/serving`` ``JobScheduler``. The sharded engine is not ported yet
+(ROADMAP queue 1, item 9).
 
 Each superstep of ``run_single`` runs under ``obs/devprof.profiled``
 (``engine.superstep``); the graph upload and the outputs' readback count
@@ -366,29 +367,43 @@ def run_sharded(program: DenseProgram, snap: GraphSnapshot,
 
 
 class GPUGraphComputer:
-    """``graph.compute()`` on one card for a fixed snapshot: runs
-    DensePrograms through ``run_single`` (optionally checkpointed) and
-    then their MapReduce stages, or K parameter sets at once through
-    ``run_single_batched``. ``device=None`` means CUDA; the tests pass
+    """``graph.compute()`` on one card: runs DensePrograms through
+    ``run_single`` (optionally checkpointed) and then their MapReduce
+    stages, or K parameter sets at once through ``run_single_batched``,
+    over snapshots built from ``graph`` (one per parameter set) or over a
+    fixed ``snapshot``. ``device=None`` means CUDA; the tests pass
     ``"cpu"``."""
 
-    def __init__(self, snapshot: Optional[GraphSnapshot] = None,
+    def __init__(self, graph=None, snapshot: Optional[GraphSnapshot] = None,
                  device=None):
+        self.graph = graph
         self._default_snapshot = snapshot
+        self._built: dict[tuple, GraphSnapshot] = {}
         self.device = resolve_device(device)
         self._scheduler = None
 
     def snapshot(self, labels=None, edge_keys=(),
                  directed=True) -> GraphSnapshot:
-        """The fixed snapshot, for the default parameters only."""
+        """The snapshot for these parameters, cached per parameter set (a
+        directed snapshot never answers a symmetrized request). A fixed
+        snapshot answers the default parameters only."""
         default_args = labels is None and not tuple(edge_keys) and directed
         if self._default_snapshot is not None and default_args:
             return self._default_snapshot
-        raise ValueError(
-            "computer holds a fixed snapshot but this request needs "
-            f"different parameters {(labels, tuple(edge_keys), directed)}; "
-            "pass snapshot= explicitly (building a snapshot from a graph "
-            "is not ported yet: ROADMAP queue 1, item 6b)")
+        key = (tuple(labels) if labels is not None else None,
+               tuple(edge_keys), directed)
+        snap = self._built.get(key)
+        if snap is None:
+            if self.graph is None:
+                raise ValueError(
+                    "computer holds a fixed snapshot but this request "
+                    f"needs different parameters {key}; pass snapshot= "
+                    "explicitly or construct the computer from a graph")
+            from titan_tpu_torch.olap.snapshot import build
+            snap = build(self.graph, labels=labels, edge_keys=edge_keys,
+                         directed=directed)
+            self._built[key] = snap
+        return snap
 
     def run(self, program: DenseProgram, params: Optional[dict] = None,
             snapshot: Optional[GraphSnapshot] = None,
@@ -454,16 +469,20 @@ class GPUGraphComputer:
             result.memory[mr.memory_key] = execute_map_reduce(mr, views)
 
     def scheduler(self, **kwargs):
-        """The computer's job scheduler (``olap/serving.JobScheduler``)
-        over its fixed snapshot, on its device, created on first use and
-        shared by every ``run_async`` call. The fixed-snapshot pool
-        ignores a job's snapshot parameters, so the caller makes the
-        snapshot fit the jobs (symmetric for BFS)."""
+        """The computer's job scheduler (``olap/serving.JobScheduler``) on
+        its device, created on first use and shared by every
+        ``run_async`` call. Over a graph its pool builds and refreshes a
+        snapshot per job's labels and orientation; only a graph-less
+        computer serves its fixed snapshot, which ignores a job's
+        snapshot parameters, so the caller makes it fit the jobs
+        (symmetric for BFS)."""
         if self._scheduler is None or self._scheduler.closed:
             from titan_tpu_torch.olap.serving.scheduler import JobScheduler
             self._scheduler = JobScheduler(
-                snapshot=self._default_snapshot, device=self.device,
-                **kwargs)
+                graph=self.graph,
+                snapshot=None if self.graph is not None
+                else self._default_snapshot,
+                device=self.device, **kwargs)
         return self._scheduler
 
     def run_async(self, spec):

@@ -7,8 +7,8 @@ batched BFS (``models/bfs_hybrid.frontier_bfs_batched``) reads the
 immutable ``OverlayView`` it hands out. ``compactor.EpochCompactor``
 folds an overlay back into the base at the epoch boundary, on the device
 (``ops/epoch_merge``) or by the host oracle. The change feed and the
-plane's orchestration (``feed.py``, ``plane.py``) are not ported yet:
-they build snapshots from a graph (ROADMAP queue 1, items 6b and 8).
+plane's orchestration (``feed.py``, ``plane.py``) are not ported yet
+(ROADMAP queue 1, item 8).
 """
 
 from titan_tpu_torch.olap.live.compactor import EpochCompactor

@@ -3,9 +3,9 @@ multi-source batching on one card (the port's copy of
 ``titan_tpu/olap/serving``).
 
 * ``jobs``      — job/handle lifecycle (queued → running → terminal).
-* ``pool``      — the snapshot pool: every job leases one fixed
-                  ``GraphSnapshot`` (the graph-backed pool waits for
-                  ROADMAP queue 1, item 6b).
+* ``pool``      — the snapshot pool: jobs lease one ``GraphSnapshot``
+                  per parameter set, built from the graph and refreshed
+                  by epoch, or one fixed snapshot.
 * ``hbm``       — device-memory accounting backing admission: the
                   chunked CSR's bytes against a budget, largest-first
                   eviction of idle graph images.

@@ -31,23 +31,23 @@ directed lease's forward CSR, and ``out()`` on the REVERSED layout,
 which needs no sort: the snapshot's dst-sorted arrays are already the
 in-CSR (:func:`reversed_chunked_csr`).
 
-The port keeps its own copies of ``Direction`` (``titan_tpu/core/defs``)
-and ``FallbackToInterpreter`` (``titan_tpu/traversal/olap_compile``); a
-plan made by the JAX package does not compare equal to the port's by
-direction identity, so plans cross between the packages as wire bodies
+``Direction`` is the port's ``core/defs.Direction`` and
+``FallbackToInterpreter`` the port's copy of
+``titan_tpu/traversal/olap_compile``'s; a plan made by the JAX package
+does not compare equal to the port's by direction identity, so plans cross between the packages as wire bodies
 or step lists. The device caches (the reversed CSR, the label masks) are
 kept on the snapshot by device under the port's own names.
 """
 
 from __future__ import annotations
 
-import enum
 from dataclasses import dataclass
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
+from titan_tpu_torch.core.defs import Direction
 from titan_tpu_torch.device import cache_key
 from titan_tpu_torch.models.bfs_hybrid import (chunked_layout,
                                                layout_slot_positions)
@@ -61,21 +61,6 @@ __all__ = ["TraversalPlan", "PPRPlan", "compile_steps",
 #: default bounded-depth ceiling (LDBC IS3 is a 4-hop; anything deeper
 #: is an analytics job for the heavy queue, not a point query)
 DEFAULT_MAX_DEPTH = 4
-
-
-class Direction(enum.IntEnum):
-    """Edge direction of a hop (the port's copy of the JAX package's
-    ``core/defs.Direction``)."""
-    OUT = 0
-    IN = 1
-    BOTH = 2
-
-    def reverse(self) -> "Direction":
-        if self is Direction.OUT:
-            return Direction.IN
-        if self is Direction.IN:
-            return Direction.OUT
-        return Direction.BOTH
 
 
 class FallbackToInterpreter(Exception):

@@ -455,17 +455,28 @@ class InteractiveLane:
         return [vals[i] for i in hopset if present[i]]
 
     def _vertex_column(self, snap, key: str):
-        """The dense property column of a values() terminal, from the
-        snapshot's ``vertex_values``. The JAX lane can also attach a
-        missing column from the pool's graph; the port's pool holds no
-        graph (ROADMAP queue 1, item 6b), so a missing column falls back
-        to the interpreter, as an unbound JAX snapshot does."""
+        """The dense property column of a values() terminal: the
+        snapshot's ``vertex_values``, attached from the pool's graph when
+        missing; FallbackToInterpreter when the snapshot cannot answer
+        faithfully (not bound to a graph, stale, or a key that is not
+        SINGLE-cardinality)."""
         got = snap.vertex_values.get(key)
         if got is not None:
             return got
-        raise FallbackToInterpreter(
-            f"snapshot carries no {key!r} column and is not bound to a "
-            "graph to build one from")
+        graph = self.sched.pool.graph
+        if graph is None or getattr(snap, "_graph", None) is None:
+            raise FallbackToInterpreter(
+                f"snapshot carries no {key!r} column and is not bound "
+                "to a graph to build one from")
+        if snap.stale:
+            raise FallbackToInterpreter(
+                f"snapshot went stale before the {key!r} column was "
+                "attached")
+        try:
+            snap.attach_vertex_values(graph, [key])
+        except ValueError as e:
+            raise FallbackToInterpreter(str(e)) from e
+        return snap.vertex_values[key]
 
     # -- personalized PageRank groups ---------------------------------------
 

@@ -1,15 +1,25 @@
-"""Snapshot pool: jobs share one leased snapshot (the port's copy of the
-fixed-snapshot path of ``titan_tpu/olap/serving/pool.py``).
+"""Epoch-aware snapshot pool: jobs share snapshots, never stale ones (the
+port's copy of ``titan_tpu/olap/serving/pool.py``).
 
-``SnapshotPool(snapshot=...)`` pins one fixed snapshot (array-built or
-externally managed) that every ``acquire()`` leases as-is; leases are
-counted so ``stats()`` reports them. The JAX pool's graph-backed path —
-one snapshot per (labels, edge_keys, directed) built from the OLTP graph
-and refreshed by epoch — needs ``snapshot.build`` (ROADMAP queue 1, item
-6b), and its live plane (``live=``) the plane itself (``olap/live/
-plane.py``, items 6b and 8); both raise ``NotImplementedError`` here.
-As in the JAX package, the fixed snapshot is leased before ``labels``
-or ``directed`` are looked at, so it answers every label set.
+One ``GraphSnapshot`` per (labels, edge_keys, directed) parameter set is
+shared by every concurrent job, leased under the snapshot's epoch and
+``refresh()`` contract (``olap/snapshot.py``):
+
+* fresh: lease it;
+* stale with no active leases: ``refresh()`` in place (no store scan);
+  a refresh that raises (a delta gap, a backlog overflow, extracted
+  edge_values) falls back to ``rebuild_in_place()``, then to a new
+  build;
+* stale with active leases: a live run must not see its arrays change,
+  so the pool builds a replacement and retires the old snapshot, which
+  is closed when its last lease is released.
+
+The snapshot ``acquire()`` returns has ``epoch >= graph.mutation_epoch``
+as read when the call began. ``SnapshotPool(snapshot=...)`` pins one
+fixed snapshot instead, leased before ``labels`` or ``directed`` are
+looked at, so it answers every label set (as in the JAX package). The
+live plane (``live=``, ``olap/live/plane.py``) is not ported yet
+(ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -47,28 +57,48 @@ class Lease:
 
 
 class SnapshotPool:
-    """See module doc. The fixed snapshot stays the caller's: the pool
-    never closes it."""
+    """See module doc. A fixed snapshot stays the caller's: the pool never
+    closes it. ``on_close(snap)`` is told of every snapshot the pool
+    discards (the scheduler drops its ledger entry and device caches)."""
 
-    def __init__(self, graph=None, snapshot=None, live=None):
+    def __init__(self, graph=None, snapshot=None, on_close=None,
+                 live=None):
         if live is not None:
             raise NotImplementedError(
                 "SnapshotPool(live=...): the live plane (LiveGraphPlane, "
-                "olap/live/plane.py) is not ported yet: it builds its "
-                "snapshots from a graph (ROADMAP queue 1, items 6b and 8)")
-        if graph is not None:
-            raise NotImplementedError(
-                "SnapshotPool(graph=...): building snapshots from a graph "
-                "is not ported yet (ROADMAP queue 1, item 6b); pass "
-                "snapshot=")
-        if snapshot is None:
-            raise ValueError("SnapshotPool needs a snapshot")
+                "olap/live/plane.py) is not ported yet (ROADMAP queue 1, "
+                "item 8)")
+        if graph is None and snapshot is None:
+            raise ValueError("SnapshotPool needs a graph or a snapshot")
+        self.graph = graph
         self._fixed = snapshot
+        self._entries: dict = {}      # key -> current snapshot
         self._leases: dict = {}       # id(snap) -> count
+        self._retired: dict = {}      # id(snap) -> snap awaiting close
+        self._keylocks: dict = {}     # key -> builder lock (slow path)
         self._lock = threading.Lock()
         self._closed = False
+        self.on_close = on_close
+
+    def _close_snap(self, snap) -> None:
+        if self.on_close is not None:
+            try:
+                self.on_close(snap)
+            except Exception:    # noqa: BLE001 — the close must go on
+                pass
+        snap.close()
+
+    @staticmethod
+    def key_of(labels: Optional[Sequence[str]] = None,
+               edge_keys: Sequence[str] = (),
+               directed: bool = False) -> tuple:
+        return (tuple(labels) if labels is not None else None,
+                tuple(edge_keys), bool(directed))
+
+    # -- lease plumbing -----------------------------------------------------
 
     def _release(self, snap) -> None:
+        to_close = None
         with self._lock:
             sid = id(snap)
             left = self._leases.get(sid, 1) - 1
@@ -76,27 +106,125 @@ class SnapshotPool:
                 self._leases[sid] = left
             else:
                 self._leases.pop(sid, None)
+                to_close = self._retired.pop(sid, None)
+        if to_close is not None:
+            self._close_snap(to_close)
+
+    def _lease_locked(self, snap) -> Lease:
+        self._leases[id(snap)] = self._leases.get(id(snap), 0) + 1
+        return Lease(snap, self._release)
+
+    # -- acquisition --------------------------------------------------------
 
     def acquire(self, labels: Optional[Sequence[str]] = None,
                 edge_keys: Sequence[str] = (),
                 directed: bool = False,
                 compacted: bool = False) -> Lease:
-        """Lease the fixed snapshot (the parameters are the JAX pool's;
-        a fixed snapshot answers every set)."""
+        """Lease a snapshot for these parameters whose epoch covers every
+        commit visible before this call (``compacted`` belongs to the
+        live plane and is ignored here).
+
+        The pool lock guards only the maps, so ``stats()`` and fast-path
+        acquires never wait behind a store scan; build() and refresh()
+        run under a per-key builder lock. A concurrent fast-path acquire
+        cannot lease a snapshot mid-refresh: its epoch is stamped last,
+        so it reads as stale until the refresh ends."""
+        if self._fixed is not None:
+            with self._lock:
+                if self._closed:
+                    raise RuntimeError("pool is closed")
+                return self._lease_locked(self._fixed)
+        from titan_tpu_torch.olap import snapshot as snap_mod
+
+        key = self.key_of(labels, edge_keys, directed)
+        e0 = self.graph.mutation_epoch
         with self._lock:
             if self._closed:
                 raise RuntimeError("pool is closed")
-            sid = id(self._fixed)
-            self._leases[sid] = self._leases.get(sid, 0) + 1
-            return Lease(self._fixed, self._release)
+            snap = self._entries.get(key)
+            if snap is not None and snap.epoch >= e0 and not snap.stale:
+                return self._lease_locked(snap)     # fast path
+            klock = self._keylocks.setdefault(key, threading.Lock())
+        with klock:
+            while True:
+                with self._lock:
+                    if self._closed:
+                        raise RuntimeError("pool is closed")
+                    snap = self._entries.get(key)
+                    if snap is not None and snap.epoch >= e0 \
+                            and not snap.stale:
+                        return self._lease_locked(snap)
+                    if snap is not None \
+                            and self._leases.get(id(snap), 0) > 0:
+                        # live runs hold the old arrays: retire, rebuild
+                        self._retired[id(snap)] = snap
+                        self._entries.pop(key, None)
+                        snap = None
+                if snap is None:
+                    new = snap_mod.build(self.graph, labels=labels,
+                                         edge_keys=edge_keys,
+                                         directed=directed)
+                    with self._lock:
+                        self._entries[key] = new
+                        # build()'s verified scan stamps an epoch >= e0
+                        # (it began after e0 was read)
+                        return self._lease_locked(new)
+                try:
+                    snap.refresh()
+                except (RuntimeError, NotImplementedError):
+                    # a delta gap, an overflow or edge_values: rebuild,
+                    # never fail the job. With no leases out (the key
+                    # lock is held, so none can appear) the rebuild is in
+                    # place and re-anchors the change queue; otherwise
+                    # the snapshot is replaced
+                    with self._lock:
+                        leased = self._leases.get(id(snap), 0) > 0
+                    if not leased:
+                        try:
+                            snap.rebuild_in_place()
+                            continue
+                        except Exception:   # noqa: BLE001
+                            pass     # fall through: replace wholesale
+                    with self._lock:
+                        if self._entries.get(key) is snap:
+                            self._entries.pop(key)
+                    self._close_snap(snap)
+                    continue
+                if snap.epoch >= e0:
+                    with self._lock:
+                        return self._lease_locked(snap)
+                # a commit landed inside refresh(): loop and check again
+
+    def ready(self) -> tuple:
+        """Readiness probe: can this pool hand out a current-epoch
+        snapshot now? Returns (ok, why)."""
+        with self._lock:
+            if self._closed:
+                return False, "pool closed"
+            if self._fixed is not None:
+                return True, "fixed snapshot resident"
+            if self.graph is not None:
+                return True, (f"graph-backed "
+                              f"({len(self._entries)} resident)")
+            return False, "no snapshot source"
 
     def stats(self) -> dict:
         with self._lock:
-            return {"entries": 0, "snapshots": 1,
+            return {"entries": len(self._entries),
+                    # resident snapshots, a fixed one included
+                    "snapshots": len(self._entries)
+                    + (1 if self._fixed is not None else 0),
                     "active_leases": sum(self._leases.values()),
-                    "retired": 0}
+                    "retired": len(self._retired)}
 
     def close(self) -> None:
         with self._lock:
             self._closed = True
+            snaps = list(self._entries.values()) \
+                + list(self._retired.values())
+            self._entries.clear()
+            self._retired.clear()
             self._leases.clear()
+        for s in snaps:
+            if s is not self._fixed:
+                self._close_snap(s)

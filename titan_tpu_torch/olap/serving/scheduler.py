@@ -93,10 +93,12 @@ The interactive point-query lane (``interactive()``,
 olap/serving/interactive) is created on first use and shares this
 scheduler's pool, ledger, tenants, tracer and profiler.
 
-Not ported: the graph-backed pool (``graph=``, ROADMAP queue 1, item
-6b), the live plane that owns an overlay and its compactor (``live=``,
-``olap/live/plane.py``, items 6b and 8) and mesh placement (``mesh=``,
-item 9); each raises NotImplementedError.
+Over a graph (``graph=``) the pool builds and refreshes one snapshot per
+job's labels, edge keys and orientation; a snapshot it discards leaves
+the HBM ledger (``_forget_snapshot``). Not ported: the live plane that
+owns an overlay and its compactor (``live=``, ``olap/live/plane.py``,
+ROADMAP queue 1, item 8) and mesh placement (``mesh=``, item 9); each
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -159,8 +161,8 @@ class JobScheduler:
         if live is not None:
             raise NotImplementedError(
                 "JobScheduler(live=...): the live plane (LiveGraphPlane, "
-                "olap/live/plane.py) is not ported yet: it builds its "
-                "snapshots from a graph (ROADMAP queue 1, items 6b and 8)")
+                "olap/live/plane.py) is not ported yet (ROADMAP queue 1, "
+                "item 8)")
         if mesh is not None:
             raise NotImplementedError(
                 "JobScheduler(mesh=...): mesh-placed batches belong to the "
@@ -214,6 +216,8 @@ class JobScheduler:
             self.profiler.install()
         self.live = None
         self.pool = SnapshotPool(graph, snapshot)
+        # retired and closed snapshots must not stay ledger-resident
+        self.pool.on_close = self._forget_snapshot
         # the evictable map must exist BEFORE the ledger (whose
         # on_evict callback reads it)
         self._evictable: dict = {}    # ledger key -> snapshot (cache drop)
@@ -416,6 +420,17 @@ class JobScheduler:
         for attr in attrs:
             if hasattr(snap, attr):
                 delattr(snap, attr)
+
+    def _forget_snapshot(self, snap) -> None:
+        """Pool close hook: a retired or rebuilt snapshot leaves the HBM
+        ledger and the evictable map, the interactive lane's reversed
+        layout on it included, instead of counting as resident."""
+        key = id(snap)
+        self._evictable.pop(key, None)
+        self.ledger.release(key)
+        rev_key = ("interactive-rev", key)
+        self._evictable.pop(rev_key, None)
+        self.ledger.release(rev_key)
 
     # -- submission surface --------------------------------------------------
 

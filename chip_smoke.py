@@ -143,7 +143,7 @@ Phases, each of which raises on failure:
    phase 5's snapshot). 11a: two epochs over the snapshot, bench.py's
    default-policy epoch (batches of 256 undirected adds and 8 removed
    undirected base edges until ``EpochCompactor.should_compact``) and a
-   large one (2^20 undirected adds, one add killed in place, 4,096
+   large one (2^18 undirected adds, one killed in place, 4,096
    removed undirected base edges, stopped at ``REMOVE_BUDGET_S``); each
    compacted on the card through a logged HBM ledger: ``device`` mode
    with no fallback, the double buffer reserved, re-keyed and unpinned,
@@ -189,7 +189,43 @@ Phases, each of which raises on failure:
    snapshots stale, and the BFS on the ``refresh()``ed snapshot equals
    the BFS on the ``rebuild_in_place()``d one. The path's launches are
    ``launches_by_path["store"]``; ``frontier_round`` and ``seg_scan`` must
-   be above zero. The store and its snapshots are freed before s26.
+   be above zero. The phase's snapshots are closed; its graph stays open
+   for phase 13;
+13. the live plane (``olap/live/plane.py``) over phase 12's store graph
+   at s22 (13a) and a cross-instance sqlite graph (13b). 13a:
+   ``LiveGraphPlane(graph, device="cuda")`` (the default policy; the
+   overlay's smallest bucket ``PLANE_MIN_CAP``) and
+   ``JobScheduler(live=plane)``, pumped by hand: 16 BFS jobs fused to
+   K = 16 over the clean base, each row equal to ``frontier_bfs_batched``
+   on the plane's base; commits of bench.py's live_refresh shape
+   (``LIVE_BATCH_EDGES`` undirected adds, ``LIVE_BATCH_REMOVES`` removed
+   base edges) through ``graph.new_transaction()``, the 16 BFS served
+   over base + overlay just before the budget fires (each row equal to
+   the BFS on the host oracle ``EpochCompactor.merge``, ``ran_epoch`` the
+   plane's), then the fold on the card: ``device`` mode, no fallback, the
+   republished base bit-equal to the host oracle; under a dirty overlay
+   an SSSP and a WCC job equal to the direct calls on the same lease, a
+   fused lane batch of 16 2-hop ``both()`` counts, then a ``pagerank``
+   and a ``dense`` job that compact that overlay before they run
+   (``ran_epoch["seq"] == 0``), within ``PAGERANK_RTOL`` of float64 over
+   the merged arrays, and the lane's counts equal to ``expand_once`` over
+   them; a resync (``_resync``, a full rescan) whose BFS rows equal the
+   rows served before it. No compaction may be for HBM admission and
+   none may fall back. Printed: apply_ms p50/p95, the commits' wall,
+   each compaction's why, mode and ms, the device merges and the host
+   syncs (``merge_delta``) apart, the served walls clean and dirty,
+   ``stats()["freshness"]``, the resync's seconds, the host's peak
+   resident set. 13b: two handles with distinct instance ids over one
+   sqlite directory (``FEED_VERTICES`` vertices), the plane on the first
+   with ``log_identifier=``; the second handle's tagged commits reach a
+   BFS served on the card through the feed, the plane's own tagged
+   commit arrives once, and the BFS equals the BFS on a rebuilt
+   snapshot; then one new vertex with an edge (the host path,
+   ``why="vertex-set change"``, the compactor's one ``apply-path``
+   fallback) reached by the next BFS, equal to a rebuild's. The served
+   runs' launches are ``launches_by_path["plane"]``; all three kernels
+   must be above zero. The store and its snapshots are freed before
+   s26.
 
 The line before the last is the ``{"kernels": [...]}`` record of the
 three kernels (each record's ``launches`` sums its paths, listed under
@@ -2477,11 +2513,13 @@ class ServedLaunches:
 
 
 def serve(sched, specs, wait_s: float = 300.0):
-    """Submit ``specs`` to a paused scheduler, start it and wait for
-    every job; returns ``(jobs, wall)``, the wall from the first submit
-    to the last job's end."""
+    """Submit ``specs`` under the scheduler's lock, so that its worker
+    takes them as one group, start it if it is paused, and wait for every
+    job; returns ``(jobs, wall)``, the wall from the first submit to the
+    last job's end."""
     t0 = time.time()
-    jobs = [sched.submit(s) for s in specs]
+    with sched._cv:                      # re-entrant: submit takes it too
+        jobs = [sched.submit(s) for s in specs]
     sched.start()
     for j in jobs:
         check(j.wait(wait_s), f"{j} did not finish in {wait_s} s")
@@ -2792,10 +2830,11 @@ def phase_serving_s22(F, P, FR, S, ref, card) -> dict:
 #: undirected base edges a delta batch
 LIVE_BATCH_EDGES = 256
 LIVE_BATCH_REMOVES = 8
-#: the large epoch: undirected adds (2^21 rows fill the 2^21 bucket) and
+#: the large epoch: undirected adds (2^19 rows fill the 2^19 bucket) and
 #: removed undirected base edges, stopped at REMOVE_BUDGET_S (remove_edge
-#: walks a row in a Python loop)
-LARGE_ADDS = 1 << 20
+#: walks a row in a Python loop); 2^18 adds keep the smoke's clock, whose
+#: host sync grows with the rows added
+LARGE_ADDS = 1 << 18
 LARGE_REMOVES = 4096
 REMOVE_BUDGET_S = 60.0
 #: the device merge is timed as the best of these runs, after a warm-up
@@ -2885,13 +2924,18 @@ def live_epochs(OV, snap, rng):
     a_d = rng.integers(0, n, LARGE_ADDS).astype(np.int32)
     ov2.append_edges(np.concatenate([a_s, a_d]), np.concatenate([a_d, a_s]),
                      np.zeros(2 * LARGE_ADDS, np.int32))
-    # one add killed in place: the first whose ends are no base edge
+    # one undirected add killed in place, both of its rows (as the plane
+    # removes an edge of a symmetric base): the first whose ends are no
+    # base edge. One row alone would leave a half edge, which the
+    # overlay's top-down scatter follows and the merged epoch's
+    # bottom-up rounds do not, in both packages
     dbs, ip = snap.out_csr()
     k = next(i for i in range(LARGE_ADDS)
              if a_s[i] != a_d[i]
              and not (dbs[ip[a_s[i]]:ip[a_s[i] + 1]] == a_d[i]).any())
     check(ov2.remove_edge(int(a_s[k]), int(a_d[k]), None)
-          and ov2.dead_adds == 1, "the add was not killed in place")
+          and ov2.remove_edge(int(a_d[k]), int(a_s[k]), None)
+          and ov2.dead_adds == 2, "the add was not killed in place")
     removed, remove_s = remove_base_edges(ov2, snap, pool, rng,
                                           LARGE_REMOVES, REMOVE_BUDGET_S)
     ov2.view()
@@ -2931,6 +2975,33 @@ def top_ops(prof, k: int = 8) -> list:
     return sorted(rows, key=lambda r: -r[2])[:k]
 
 
+class Clocked:
+    """Wraps the named functions of a module so that each call's seconds
+    are kept under its name, in order, until ``restore()``."""
+
+    def __init__(self, mod, names):
+        self.mod = mod
+        self.orig = {n: getattr(mod, n) for n in names}
+        self.s = {n: [] for n in names}
+        for n in names:
+            setattr(mod, n, self._wrap(n))
+
+    def _wrap(self, name):
+        fn = self.orig[name]
+
+        def call(*a, **kw):
+            t = time.time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.s[name].append(time.time() - t)
+        return call
+
+    def restore(self) -> None:
+        for n, fn in self.orig.items():
+            setattr(self.mod, n, fn)
+
+
 def compact_epoch(P, SN, EM, snap, ep, launches, srcs, card) -> dict:
     """One epoch on the card: the compactor's device path through a
     logged ledger, the memory it takes, the device merge's time (best of
@@ -2958,28 +3029,17 @@ def compact_epoch(P, SN, EM, snap, ep, launches, srcs, card) -> dict:
     base_bytes = snapshot_csr_bytes(snap)
     ledger.reserve(id(snap), base_bytes)      # the served current epoch
     ledger.unpin(id(snap))
-    # the host sync's seconds, and those of its incremental out-CSR
-    host_s = {}
-    originals = {name: getattr(SN, name)
-                 for name in ("merge_delta", "_merge_out_csr")}
-
-    def clocked(name):
-        def call(*a):
-            t = time.time()
-            out = originals[name](*a)
-            host_s[name] = time.time() - t
-            return out
-        return call
     a0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    for name in originals:
-        setattr(SN, name, clocked(name))
+    # the host sync's seconds, and those of its incremental out-CSR
+    clock = Clocked(SN, ("merge_delta", "_merge_out_csr"))
     try:
         (merged, mode), compact_s = wall_s(lambda: comp.compact(
             snap, ov, ledger=ledger, metrics=mm))
     finally:
-        for name, fn in originals.items():
-            setattr(SN, name, fn)
+        clock.restore()
+    host_s = {name: (s[-1] if s else None)
+              for name, s in clock.s.items()}
     peak = torch.cuda.max_memory_allocated() - a0
     grew = torch.cuda.memory_allocated() - a0
     check(mode == "device" and comp.fallbacks == {}, f"epoch "
@@ -3497,16 +3557,20 @@ def freshness_commit(g, snap, rng) -> None:
     tx.commit()
 
 
-def phase_store_ingest(P, G, ref, card, runs) -> dict:
+def phase_store_ingest(P, G, ref, card, runs) -> tuple:
     """Phase 12, bench.py's store_ingest stage at s22 (``bench.py:992``):
     the R-MAT edges bulk-loaded into ``titan_tpu_torch.open("inmemory")``
     and scanned back into a symmetric snapshot (``ingest_rmat_store``),
     its arrays checked against the generated edges, its BFS against the
-    BFS on phase 5's generated graph; then ``graph.compute()``: PageRank
-    through ``seg_scan``, two BFS jobs through the graph-backed
-    scheduler, a freshness commit, ``refresh()`` against
-    ``rebuild_in_place()``. ``runs`` counts the main path's launches; the comparisons run outside it. Returns
-    the bench.py record."""
+    BFS on phase 5's generated graph; then ``graph.compute()``: two BFS
+    jobs through the graph-backed scheduler, whose pool's snapshot must
+    equal the ingest's, PageRank through ``seg_scan`` over it, a
+    freshness commit and its ``refresh()``. ``runs`` counts the main
+    path's launches; the comparisons run outside it. Returns the bench.py
+    record, the store's graph, open, its snapshots closed (phase 13
+    serves it and closes it), and the refreshed snapshot's vertex arrays,
+    epoch and BFS from the phase's source, which phase 13 holds its
+    plane's fresh scan to."""
     from titan_tpu_torch import native
     from titan_tpu_torch.device import INF
     from titan_tpu_torch.models import pagerank as MP
@@ -3535,7 +3599,7 @@ def phase_store_ingest(P, G, ref, card, runs) -> dict:
     t0 = time.time()
     res = B.ingest_rmat_store(scale, edge_factor=EDGE_FACTOR, seed=SEED)
     g, isnap = res["graph"], res["snapshot"]
-    sched = None
+    sched = kept = None
     try:
         say(f"phase 12: s{scale} ingest {res['ingest_s']:.1f} s "
             f"(bulk_load_adjacency, {res['m']} edges into the in-memory "
@@ -3584,15 +3648,33 @@ def phase_store_ingest(P, G, ref, card, runs) -> dict:
         say(f"phase 12: store_ingest_s{scale} " + json.dumps(rec))
         rec["scale"] = scale
 
-        # ---- graph.compute(): the graph entry's own snapshot
+        # ---- graph.compute(): two BFS jobs through the graph-backed
+        # scheduler, whose pool scans the store; its snapshot then serves
+        # PageRank and the freshness check (the store scans set the
+        # smoke's clock: one is enough)
         comp = g.compute(backend="gpu", device=dev)
-        t3 = time.time()
-        csnap = comp.snapshot(directed=False)
-        build_s = time.time() - t3
+        sched = comp.scheduler(autostart=False, max_batch=BATCH_K,
+                               metrics=MetricManager())
+        srcs = sample_sources(hg["deg"], 2)
+        specs = [JobSpec(kind="bfs", params={"source": int(vids[s])},
+                         directed=False) for s in srcs]
+        jobs, served_s = runs.run(lambda: serve(sched, specs))
+        with sched.pool.acquire(directed=False) as csnap:
+            pool = sched.pool.stats()
+        check(pool["entries"] == 1 and pool["snapshots"] == 1,
+              f"pool {pool}")
         check(all(np.array_equal(getattr(csnap, f), getattr(isnap, f))
                   for f in ("vertex_ids", "src", "dst", "indptr_in",
                             "out_degree")),
-              "compute().snapshot(directed=False) differs from the ingest's")
+              "the pool's snapshot(directed=False) differs from the "
+              "ingest's")
+        isnap.close()
+        isnap._invalidate_layout_caches()
+        for j, s in zip(jobs, srcs):
+            check(j.state.value == "done", f"{j} {j.state} {j.error}")
+            d, _ = P.frontier_bfs_hybrid(csnap, s, device=dev)
+            check(np.array_equal(j.result["dist"], np.minimum(d, INF)),
+                  f"the served BFS from {s} differs from the direct call")
         f64 = Background(lambda: host_pagerank(csnap, 0.85, 20))
         pr = runs.run(lambda: MP.run(comp, 0.85, 20, 0.0, snapshot=csnap))
         torch.cuda.synchronize()
@@ -3600,33 +3682,17 @@ def phase_store_ingest(P, G, ref, card, runs) -> dict:
                            / f64.result()))
         check(pr.iterations == 20 and rel <= PAGERANK_RTOL,
               f"store PageRank differs from float64 by {rel}")
-        # ---- two BFS jobs through the graph-backed pool
-        sched = comp.scheduler(autostart=False, max_batch=BATCH_K,
-                               metrics=MetricManager())
-        srcs = sample_sources(hg["deg"], 2)
-        specs = [JobSpec(kind="bfs", params={"source": int(vids[s])},
-                         directed=False) for s in srcs]
-        jobs, served_s = runs.run(lambda: serve(sched, specs))
-        for j, s in zip(jobs, srcs):
-            check(j.state.value == "done", f"{j} {j.state} {j.error}")
-            d, _ = P.frontier_bfs_hybrid(csnap, s, device=dev)
-            check(np.array_equal(j.result["dist"], np.minimum(d, INF)),
-                  f"the served BFS from {s} differs from the direct call")
-        pool = sched.pool.stats()
-        check(pool["entries"] == 1, f"pool {pool}")
-        sched.close()
-        sched = None
-        say(f"phase 12: compute() on {card}: snapshot(directed=False) "
-            f"built in {build_s:.1f} s, PageRank 20 supersteps within "
-            f"{rel:.3g} of float64 scipy; 2 BFS jobs through the "
-            f"graph-backed scheduler in {served_s:.3f} s (its pool built "
-            f"its own snapshot), equal to the direct call")
-        # ---- freshness: a commit, refresh() against rebuild_in_place()
+        say(f"phase 12: compute() on {card}: 2 BFS jobs through the "
+            f"graph-backed scheduler in {served_s:.3f} s (its pool scanned "
+            f"the store), equal to the direct call; the pool's snapshot "
+            f"equal to the ingest's; PageRank 20 supersteps over it within "
+            f"{rel:.3g} of float64 scipy")
+        # ---- freshness: a commit, refresh() of the pool's snapshot; the
+        # rescan it is held to is phase 13's plane build
         t4 = time.time()
         freshness_commit(g, csnap, np.random.default_rng(SEED))
         commit_s = time.time() - t4
-        check(csnap.stale and isnap.stale, "a committed snapshot is not "
-              "stale")
+        check(csnap.stale, "a committed snapshot is not stale")
         t5 = time.time()
         stats = csnap.refresh()
         refresh_s = time.time() - t5
@@ -3634,43 +3700,598 @@ def phase_store_ingest(P, G, ref, card, runs) -> dict:
                         "removed_edges": STORE_REMOVES,
                         "added_vertices": 0, "removed_vertices": 0},
               f"refresh() applied {stats}")
-        d_fresh, _ = runs.run(lambda: P.frontier_bfs_hybrid(
-            csnap, source, return_device=True, device=dev))
-        t6 = time.time()
-        isnap.rebuild_in_place()
-        rebuild_s = time.time() - t6
-        d_rebuilt, _ = runs.run(lambda: P.frontier_bfs_hybrid(
-            isnap, source, return_device=True, device=dev))
-        check(not csnap.stale and not isnap.stale
-              and csnap.epoch == isnap.epoch == g.mutation_epoch,
-              "a refreshed or rebuilt snapshot is stale")
-        check(all(np.array_equal(getattr(csnap, f), getattr(isnap, f))
-                  for f in ("vertex_ids", "indptr_in", "out_degree"))
-              and csnap.num_edges == res["m"] * 2 + 2 * (STORE_ADDS
-                                                         - STORE_REMOVES),
-              "the refreshed CSR differs from the rebuilt one")
-        check(B.dist_match(d_fresh, d_rebuilt, int(INF)), "the BFS on the "
-              "refreshed snapshot differs from the BFS on the rebuilt one")
+        with sched.pool.acquire(directed=False) as leased:
+            check(leased is csnap and not csnap.stale
+                  and csnap.epoch == g.mutation_epoch
+                  and csnap.num_edges == res["m"] * 2
+                  + 2 * (STORE_ADDS - STORE_REMOVES),
+                  "the pool does not lease the refreshed snapshot")
+            d_fresh, _ = runs.run(lambda: P.frontier_bfs_hybrid(
+                csnap, source, return_device=True, device=dev))
+        fresh = {f: getattr(csnap, f) for f in ("vertex_ids", "indptr_in",
+                                                "out_degree")}
+        fresh.update(epoch=csnap.epoch, num_edges=csnap.num_edges,
+                     source=source, dist=d_fresh)
+        sched.close()                    # closes the pool's snapshot
+        sched = None
         rec.update(peak_rss_bytes=rss.stop(), start_rss_bytes=rss.first,
-                   compute_snapshot_seconds=round(build_s, 1),
+                   served_scan_seconds=round(served_s, 1),
                    commit_seconds=round(commit_s, 2),
                    refresh_seconds=round(refresh_s, 2),
-                   rebuild_seconds=round(rebuild_s, 1),
                    phase_seconds=round(time.time() - t0, 1))
         say(f"phase 12: {STORE_ADDS} added and {STORE_REMOVES} removed "
-            f"edges committed in {commit_s:.2f} s; both snapshots stale; "
-            f"refresh() {refresh_s:.2f} s, rebuild_in_place() "
-            f"{rebuild_s:.1f} s, their BFS from {source} equal; the host's "
-            f"resident set {rec['start_rss_bytes']} B at the phase's start, "
+            f"edges committed in {commit_s:.2f} s; the pool's snapshot "
+            f"stale, refresh() {refresh_s:.2f} s, then leased at the "
+            f"graph's epoch; the host's resident set "
+            f"{rec['start_rss_bytes']} B at the phase's start, "
             f"{rec['peak_rss_bytes']} B at its peak")
         say(f"phase 12: record " + json.dumps(rec))
-        return rec
+        kept = g
+        return rec, kept, fresh
     finally:
         rss.stop()
         if sched is not None:
             sched.close()
-        g.close()
+        if kept is None:
+            g.close()
 
+
+# ---- phase 13: the live plane on phase 12's store graph
+
+#: the plane's smallest overlay bucket: one commit of bench.py's
+#: live_refresh shape (2 * LIVE_BATCH_EDGES rows) stays in the overlay
+#: and the second reaches the default fill budget (0.5); at the overlay's
+#: default of 1,024 rows the first commit would fold at once
+PLANE_MIN_CAP = 2048
+#: phase 13b's cross-instance graph: vertices, edges among the first half
+#: of them, and the second handle's tagged commits
+FEED_VERTICES, FEED_EDGES, FEED_COMMITS = 1000, 4000, 4
+FEED_WAIT_S = 60.0
+
+
+class FrozenOverlay:
+    """What ``EpochCompactor.merge`` reads of an overlay, copied: the
+    killed base rows and the live adds."""
+
+    def __init__(self, ov):
+        self.tomb_row_mask = ov.tomb_row_mask.copy()
+        self._adds = ov.live_adds()           # copies
+
+    def live_adds(self):
+        return self._adds
+
+
+def check_done(jobs) -> None:
+    for j in jobs:
+        check(j.state.value == "done", f"{j.spec.kind} job: "
+              f"{j.state.value}, {j.error}")
+
+
+def plane_commit(g, base, rng, low) -> tuple:
+    """One commit of bench.py's live_refresh shape through the graph's
+    transaction API: LIVE_BATCH_EDGES undirected adds between random
+    existing vertices and LIVE_BATCH_REMOVES removed base edges, each the
+    first out-edge of the next vertex of ``low`` (an iterator over
+    low-degree vertices of ``base``). Returns (start, the writes'
+    seconds, ``tx.commit()``'s seconds)."""
+    vids = base.vertex_ids
+    t0 = time.time()
+    tx = g.new_transaction()
+    for a, b in rng.integers(0, base.n, size=(LIVE_BATCH_EDGES, 2)):
+        tx.vertex(int(vids[a])).add_edge("related", tx.vertex(int(vids[b])))
+    removed = 0
+    for v in low:
+        out = list(tx.vertex(int(vids[v])).out_edges("related"))
+        if out:
+            out[0].remove()
+            removed += 1
+        if removed == LIVE_BATCH_REMOVES:
+            break
+    check(removed == LIVE_BATCH_REMOVES, f"only {removed} edges to remove")
+    t1 = time.time()
+    tx.commit()
+    return t0, t1 - t0, time.time() - t1
+
+
+def bfs_rows(jobs) -> np.ndarray:
+    return np.stack([j.result["dist"] for j in jobs])
+
+
+def top_down_rows(g, srcs) -> np.ndarray:
+    """BFS levels from each of ``srcs`` by ``expand_once`` alone, INF
+    where unreached: a BFS row's plain reference."""
+    from titan_tpu_torch.device import INF
+    n, dev = g["n"], g["dstT"].device
+    rows = []
+    for x in srcs:
+        dist = torch.full((n,), INF, dtype=torch.int32, device=dev)
+        cur = torch.zeros(n, dtype=torch.bool, device=dev)
+        cur[x] = True
+        seen, level = cur.clone(), 0
+        while bool(cur.any()):
+            dist[cur] = level
+            cur = expand_once(g, cur) & ~seen
+            seen |= cur
+            level += 1
+        rows.append(dist.cpu().numpy())
+    return np.stack(rows)
+
+
+def oracle_rows(P, oracle, base, frozen, srcs, dev) -> tuple:
+    """The BFS rows over the host oracle ``EpochCompactor.merge(base,
+    frozen)``: by ``frontier_bfs_batched``, and by ``top_down_rows`` over
+    the same merged CSR."""
+    merged = oracle.merge(base, frozen)
+    rows = P.frontier_bfs_batched(merged, srcs, device=dev)[0]
+    return rows, top_down_rows(P.build_chunked_csr(merged, dev), srcs)
+
+
+class GcPauses:
+    """Python's collector pauses, (generation, start, seconds), from
+    construction until ``stop()``."""
+
+    def __init__(self):
+        self.pauses, self._t = [], 0.0
+        gc.callbacks.append(self._cb)
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t = time.time()
+        else:
+            self.pauses.append((info["generation"], self._t,
+                                time.time() - self._t))
+
+    def within(self, t0: float, t1: float) -> float:
+        return sum(s for _, t, s in self.pauses if t0 <= t < t1)
+
+    def stop(self) -> None:
+        if self._cb in gc.callbacks:
+            gc.callbacks.remove(self._cb)
+
+
+def compactions(sched) -> list:
+    """The plane's compaction events on the scheduler's tracer (the
+    reserved ``live`` trace): why, mode, epoch, ms."""
+    return [{"why": s.attrs["why"], "mode": s.attrs["mode"],
+             "epoch": s.attrs["epoch"], "ms": s.duration_ms}
+            for s in sched.tracer.spans("live") or () if s.name == "compact"]
+
+
+def phase_live_plane(P, FR, SN, card, g, runs, fresh) -> dict:
+    """Phase 13a, the live plane's local lane over phase 12's store graph
+    at s22: ``LiveGraphPlane`` and ``JobScheduler(live=)``, its fresh scan
+    held to phase 12's refreshed snapshot (``fresh``), the 16 BFS on a
+    clean base, commits in bench.py's live_refresh shape served over base
+    + overlay until the default budget folds the epoch on the card, SSSP,
+    WCC, the lane, and the compact-before-run jobs under a dirty overlay,
+    then a resync; every result against its reference. ``runs`` counts
+    the served runs' launches."""
+    from titan_tpu_torch.device import INF, cache_key
+    from titan_tpu_torch.models import pagerank as MP
+    from titan_tpu_torch.olap import bulk as B
+    from titan_tpu_torch.olap.api import JobSpec
+    from titan_tpu_torch.olap.live import EpochCompactor, LiveGraphPlane
+    from titan_tpu_torch.olap.live import overlay as OVM
+    from titan_tpu_torch.olap.serving import JobScheduler
+    from titan_tpu_torch.olap.serving.interactive import plan_from_wire
+    from titan_tpu_torch.utils.metrics import MetricManager
+
+    dev = torch.device("cuda")
+    rss = PeakRss()
+    mm = MetricManager()
+    clock = Clocked(SN, ("merge_delta", "_merge_out_csr"))
+    # the first removal in each overlay orders the base's labels by source
+    labels_clock = Clocked(OVM.DeltaOverlay, ("_labels_src_order",))
+    pauses = GcPauses()
+    oracle = EpochCompactor(device="cpu")          # merge() is host-only
+    rec = {}
+    sched = None
+    t_phase = time.time()
+    try:
+        t0 = time.time()
+        plane = LiveGraphPlane(g, device=dev, metrics=mm,
+                               min_cap=PLANE_MIN_CAP)
+        rec["build_s"] = time.time() - t0
+        sched = JobScheduler(live=plane, metrics=MetricManager(),
+                             max_batch=BATCH_K, device=dev,
+                             interactive_window_s=LANE_WINDOW_S,
+                             interactive_max_fuse=BATCH_K)
+        plane.pump()
+        base = plane.snapshot
+        n = base.n
+        srcs = sample_sources(base.out_degree, BATCH_K)
+        src_vids = [int(base.vertex_ids[s]) for s in srcs]
+        bfs_specs = [JobSpec(kind="bfs", params={"source": v})
+                     for v in src_vids]
+        check(base.epoch == fresh["epoch"]
+              and base.num_edges == fresh["num_edges"]
+              and all(np.array_equal(getattr(base, f), fresh[f])
+                      for f in ("vertex_ids", "indptr_in", "out_degree")),
+              "the plane's fresh scan differs from phase 12's refreshed "
+              "snapshot")
+        say(f"phase 13a: LiveGraphPlane over the s{STORE_SCALE} store graph "
+            f"built in {rec['build_s']:.1f} s ({n} vertices, "
+            f"{base.num_edges} rows; one store scan, the overlay's out-CSR "
+            f"index), its arrays equal to phase 12's refreshed snapshot's; "
+            f"policy {plane.compactor.policy()}")
+
+        # ---- a clean base
+        jobs, rec["served_clean_s"] = runs.run(
+            lambda: serve(sched, bfs_specs))
+        check_done(jobs)
+        check({j.batch_k for j in jobs} == {BATCH_K}, "the clean BFS jobs "
+              f"ran as {[j.batch_k for j in jobs]}")
+        direct, _, _ = P.frontier_bfs_batched(base, srcs, device=dev)
+        check(np.array_equal(bfs_rows(jobs), direct), "a served BFS row "
+              "over the clean base differs from frontier_bfs_batched")
+        check(all(j.ran_epoch == {"epoch": 0, "seq": 0,
+                                  "applied_epoch": g.mutation_epoch}
+                  for j in jobs), f"ran_epoch {jobs[0].ran_epoch}")
+        del direct
+        d, _ = P.frontier_bfs_hybrid(base, fresh["source"],
+                                     return_device=True, device=dev)
+        check(B.dist_match(d, fresh["dist"], INF), "the BFS on the plane's "
+              "fresh scan differs from the BFS on phase 12's refreshed "
+              "snapshot")
+        del d, fresh
+        say(f"phase 13a: {BATCH_K} BFS jobs served over the clean base in "
+            f"one batch of {BATCH_K}: {rec['served_clean_s']:.4f} s from "
+            f"the first submit (the base's chunked CSR built and uploaded "
+            f"on the way); every row equal to frontier_bfs_batched on the "
+            f"plane's base; the BFS from phase 12's source equal to its "
+            f"BFS on the refreshed snapshot")
+
+        # ---- writes until the default budget folds the epoch on the card
+        rng = np.random.default_rng(SEED)
+        low = iter(rng.permutation(np.flatnonzero(
+            (base.out_degree >= 2) & (base.out_degree <= 4))).tolist())
+        commits, dirty = [], None
+        while plane.epoch == 0:
+            check(len(commits) < 64, "the default budget never fired")
+            folding = plane.overlay
+            commits.append(plane_commit(g, base, rng, low))
+            plane.pump()
+            ov = plane.overlay
+            if plane.epoch == 0 and dirty is None and (
+                    ov.count + 2 * LIVE_BATCH_EDGES
+                    >= plane.compactor.max_fill * ov.cap):
+                # the next commit folds: serve over base + overlay now
+                snap_d, view_d, info_d = plane.lease_state()
+                check(snap_d is base and not view_d.empty, "no overlay")
+                jobs, rec["served_dirty_s"] = runs.run(
+                    lambda: serve(sched, bfs_specs))
+                check_done(jobs)
+                check(all(j.ran_epoch == info_d for j in jobs),
+                      f"ran_epoch {jobs[0].ran_epoch}, the plane's {info_d}")
+                # the host oracle's BFS, beside the fold, over a copy of
+                # the overlay's state: the next commit appends to it
+                frozen = FrozenOverlay(ov)
+                dirty = (ov.count, ov.tomb_count, info_d, bfs_rows(jobs),
+                         Background(lambda: oracle_rows(
+                             P, oracle, base, frozen, srcs, dev)))
+        check(dirty is not None, "the epoch folded before a dirty serve")
+        merged = plane.snapshot
+        folds = compactions(sched)
+        check([(c["why"], c["mode"]) for c in folds] == [("budget",
+                                                          "device")]
+              and plane.compactor.fallbacks == {}
+              and mm.counter_value("serving.live.device_merge_fallbacks")
+              == 0, f"the budget fold: {folds}, fallbacks "
+              f"{plane.compactor.fallbacks}")
+        t1 = time.time()
+        want, plain = dirty[4].result()
+        waited = time.time() - t1
+        check(np.array_equal(dirty[3], want), "a served BFS row over base "
+              "+ overlay differs from the BFS on the host oracle "
+              "EpochCompactor.merge(base, overlay)")
+        check(np.array_equal(np.minimum(dirty[3], INF), plain), "a served "
+              "BFS row over base + overlay differs from the top-down BFS "
+              "by expand_once over the host oracle's CSR")
+        del want, plain
+        say(f"phase 13a: {len(commits)} commits of {LIVE_BATCH_EDGES} "
+            f"undirected adds and {LIVE_BATCH_REMOVES} removed base edges; "
+            f"{BATCH_K} BFS served over base + overlay ({dirty[0]} rows "
+            f"added, {dirty[1]} tombstoned, ran_epoch {dirty[2]}) in "
+            f"{rec['served_dirty_s']:.4f} s, every row equal to the BFS on "
+            f"the host oracle and to the top-down BFS by expand_once over "
+            f"its CSR (both run beside the fold; waited {waited:.1f} s); "
+            f"the next commit folded the epoch on the card: {folds[0]}")
+        del dirty
+        # the republished base against the host oracle, in the background
+        fold_oracle = Background(lambda: host_oracles(
+            base, [{"ov": folding}])[0])
+
+        # ---- under a dirty overlay: SSSP, WCC, the lane, then the
+        # compact-before-run jobs
+        commits.append(plane_commit(g, base, rng, low))
+        plane.pump()
+        snap2, view2, info2 = plane.lease_state()
+        check(snap2 is merged and not view2.empty and info2["epoch"] == 1,
+              f"lease {info2}")
+        sssp_vid = int(snap2.vertex_ids[np.flatnonzero(
+            snap2.out_degree > 0)[0]])
+        jobs, mixed_s = runs.run(lambda: serve(sched, [
+            JobSpec(kind="sssp", params={"source": sssp_vid}),
+            JobSpec(kind="wcc")]))
+        check_done(jobs)
+        check(all(j.ran_epoch == info2 for j in jobs), "SSSP/WCC ran_epoch")
+        d, r = FR.frontier_sssp(snap2, snap2.dense_of(sssp_vid),
+                                overlay=view2, device=dev)
+        check(np.array_equal(jobs[0].result["dist"].view(np.int32),
+                             d.view(np.int32))
+              and jobs[0].result["rounds"] == r,
+              "the served SSSP differs from frontier_sssp on its lease")
+        lab, wr = FR.frontier_wcc(snap2, overlay=view2, device=dev)
+        served_labels = jobs[1].result["labels"]
+        check(np.array_equal(served_labels, lab)
+              and jobs[1].result["rounds"] == wr,
+              "the served WCC differs from frontier_wcc on its lease")
+        del d, lab
+        lane = sched.interactive()
+        bodies = [{"start": [v], "dir": "both", "hops": 2,
+                   "terminal": "count"} for v in src_vids]
+        res = one_batch(runs.run(lambda: burst(lane, bodies,
+                                               plan_from_wire)),
+                        BATCH_K, "the lane over the overlay")
+        check(all(r_["epoch"] == info2 for r_ in res),
+              f"the lane answered at {res[0]['epoch']}, the plane's {info2}")
+        # the compact-before-run jobs fold this same overlay
+        jobs, pr_s = runs.run(lambda: serve(sched, [
+            JobSpec(kind="pagerank", params={"iterations": 20})]))
+        check_done(jobs)
+        snap3 = plane.snapshot
+        check(jobs[0].ran_epoch["seq"] == 0
+              and jobs[0].ran_epoch["epoch"] == 2, f"the pagerank job "
+              f"ran at {jobs[0].ran_epoch}: it did not compact first")
+        f64 = Background(lambda: host_pagerank(snap3, 0.85, 20))
+        components = Background(lambda: min_label_components(snap3))
+        inv = np.where(snap3.out_degree > 0, 1.0 / np.maximum(
+            snap3.out_degree, 1), 0.0).astype(np.float32)
+        dense, dense_s = runs.run(lambda: serve(sched, [
+            JobSpec(kind="dense", params={
+                "program": MP.PageRank(0.85, 20, 0.0), "n": n,
+                "inv_outdeg": inv})]))
+        check_done(dense)
+        check(dense[0].ran_epoch == jobs[0].ran_epoch, f"the dense job ran "
+              f"at {dense[0].ran_epoch}, pagerank at {jobs[0].ran_epoch}")
+        # the lane's counts against expand_once over the merged arrays
+        g3 = snap3._hybrid_csr_by_device[cache_key(dev)]
+        for s, r_ in zip(srcs, res):
+            want = int(hop_sets(g3, s, 2)[1].sum())
+            check(r_["result"] == want, f"lane count from {s}: "
+                  f"{r_['result']}, expansion over the merged arrays {want}")
+        rank64 = f64.result()
+        errs = [float(np.max(np.abs(j.result["rank"] - rank64) / rank64))
+                for j in (jobs[0], dense[0])]
+        check(max(errs) <= PAGERANK_RTOL, f"pagerank / dense differ from "
+              f"float64 over the merged arrays by {errs}")
+        check(np.array_equal(served_labels, components.result()), "the "
+              "served WCC labels differ from scipy's components over the "
+              "merged arrays")
+        del rank64, g3, served_labels, components
+        folds = compactions(sched)
+        check([(c["why"], c["mode"]) for c in folds[1:]]
+              == [("compact-before-run", "device")]
+              and mm.counter_value("serving.live.device_merge_fallbacks")
+              == 0, f"compact-before-run: {folds}")
+        say(f"phase 13a: under a dirty overlay (ran_epoch {info2}): SSSP "
+            f"and WCC served in {mixed_s:.4f} s, equal to frontier_sssp "
+            f"and frontier_wcc on the same lease; a fused lane batch of "
+            f"{BATCH_K} 2-hop both() counts (exec {res[0]['exec_ms']:.3f} "
+            f"ms); then pagerank ({pr_s:.3f} s) and dense ({dense_s:.3f} s) "
+            f"jobs compacted that overlay before they ran (ran_epoch "
+            f"{jobs[0].ran_epoch}; the fold {folds[1]}), within "
+            f"{max(errs):.3g} of float64 over the merged arrays; the WCC "
+            f"labels equal scipy's components and the lane's counts "
+            f"expand_once over them")
+        out = getattr(merged, "_hybrid_csr_by_device", {}).get(
+            cache_key(dev))
+        check(out is not None, "the budget epoch was published without "
+              "its device CSR")
+        t1 = time.time()
+        check_against_oracle({"name": "budget"}, merged, out,
+                             fold_oracle.result())
+        say(f"phase 13a: the budget epoch's republished base bit-equal to "
+            f"its host oracle (the device CSR, merge_delta's arrays and "
+            f"incremental out-CSR, the lazy mirror; waited "
+            f"{time.time() - t1:.1f} s)")
+        del out, fold_oracle, folding, merged, base
+
+        # ---- resync: the listener-overflow recovery, a full rescan
+        jobs, _ = runs.run(lambda: serve(sched, bfs_specs))
+        check_done(jobs)
+        before = bfs_rows(jobs)
+        t1 = time.time()
+        with plane._lock:
+            plane._resync("chip check")
+        rec["resync_s"] = time.time() - t1
+        jobs, after_s = runs.run(lambda: serve(sched, bfs_specs))
+        check_done(jobs)
+        check(np.array_equal(bfs_rows(jobs), before), "the BFS rows over "
+              "the resynced base differ from the rows served before it")
+        check(mm.counter_value("serving.live.resyncs") == 1, "resyncs")
+
+        folds = compactions(sched)
+        check(all(c["why"] != "hbm admission" for c in folds),
+              f"a compaction for HBM admission: {folds}")
+        stats = plane.stats()
+        apply_ms = mm.histogram("serving.live.apply_ms").to_dict()
+        rec.update(commits=len(commits),
+                   write_s=[w for _, w, _ in commits],
+                   commit_s=[c for _, _, c in commits],
+                   commit_gc_s=[pauses.within(t, t + w + c)
+                                for t, w, c in commits],
+                   apply_ms=mm.histogram("serving.live.apply_ms").values(),
+                   apply_ms_p50=apply_ms["p50"], apply_ms_p95=apply_ms["p95"],
+                   labels_order_s=[x for x in labels_clock.s[
+                       "_labels_src_order"] if x >= 1e-3],
+                   gc_pauses=[(gen, round(t - t_phase, 3), x)
+                              for gen, t, x in pauses.pauses if x >= 0.05],
+                   compactions=folds,
+                   device_merge_ms=mm.histogram(
+                       "serving.live.compact_device_ms").values(),
+                   merge_delta_s=clock.s["merge_delta"],
+                   merge_out_csr_s=clock.s["_merge_out_csr"],
+                   freshness=stats["freshness"],
+                   served_after_resync_s=after_s)
+        say(f"phase 13a: resync (a full rescan, the queue re-anchored) in "
+            f"{rec['resync_s']:.1f} s; the {BATCH_K} BFS rows over the "
+            f"resynced base equal the rows served before it ({after_s:.3f} "
+            f"s with the upload)")
+        say(f"phase 13a: {len(commits)} commits in "
+            f"{sum(rec['write_s']) + sum(rec['commit_s']):.3f} s: the "
+            f"writes s {rec['write_s']}, "
+            f"tx.commit() s {rec['commit_s']}, the collector's pauses in "
+            f"them s {rec['commit_gc_s']}; applies ms {rec['apply_ms']}, "
+            f"of them the base labels' source order (each overlay's first "
+            f"removal) s {rec['labels_order_s']}; the collector's pauses "
+            f"of 0.05 s or more in the phase (generation, at s, s) "
+            f"{rec['gc_pauses']}")
+        say(f"phase 13a: apply_ms p50 {apply_ms['p50']:.3f} p95 "
+            f"{apply_ms['p95']:.3f} over {apply_ms['count']} applies; "
+            f"compactions {folds}; device merge ms "
+            f"{rec['device_merge_ms']}; host sync merge_delta s "
+            f"{[round(x, 2) for x in rec['merge_delta_s']]} (of it "
+            f"_merge_out_csr {[round(x, 2) for x in rec['merge_out_csr_s']]}"
+            f"); served K={BATCH_K} clean {rec['served_clean_s']:.4f} s, "
+            f"dirty {rec['served_dirty_s']:.4f} s; freshness "
+            f"{stats['freshness']}")
+        sched.close()                    # closes the plane
+        sched = None
+        rec["phase_s"] = time.time() - t_phase
+        rec["peak_rss_bytes"] = rss.stop()
+        say(f"phase 13a: the host's resident set {rss.first} B at the "
+            f"phase's start, {rec['peak_rss_bytes']} B at its peak; the "
+            f"phase {rec['phase_s']:.1f} s; record " + json.dumps(
+                {k: v for k, v in rec.items() if k != "compactions"}))
+        return rec
+    finally:
+        clock.restore()
+        labels_clock.restore()
+        pauses.stop()
+        rss.stop()
+        if sched is not None:
+            sched.close()
+
+
+def phase_live_feed(P, SN, card, runs) -> None:
+    """Phase 13b on a small sqlite graph (correctness only, host-sized):
+    two port handles over one directory; the plane on the first, with
+    ``log_identifier=``, serves the second handle's tagged commits through
+    the change feed, and its own tagged commit arrives once; then a
+    vertex-set change, which the plane folds on the host path and the
+    next BFS reaches."""
+    import tempfile
+
+    import titan_tpu_torch
+    from titan_tpu_torch.olap.api import JobSpec
+    from titan_tpu_torch.olap.live import LiveGraphPlane
+    from titan_tpu_torch.olap.serving import JobScheduler
+    from titan_tpu_torch.utils.metrics import MetricManager
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as d:
+        def handle(instance):
+            return titan_tpu_torch.open({
+                "storage.backend": "sqlite", "storage.directory": d,
+                "graph.unique-instance-id": instance})
+        g1, g2 = handle("a"), handle("b")
+        sched = None
+        try:
+            rng = np.random.default_rng(SEED)
+            half = FEED_VERTICES // 2
+            tx = g1.new_transaction()
+            vs = [tx.add_vertex() for _ in range(FEED_VERTICES)]
+            for a, b in rng.integers(0, half, size=(FEED_EDGES, 2)):
+                vs[a].add_edge("link", vs[b])
+            tx.commit()
+            vids = [v.id for v in vs]
+            mm = MetricManager()
+            plane = LiveGraphPlane(g1, device=dev, metrics=mm,
+                                   log_identifier="chip")
+            sched = JobScheduler(live=plane, metrics=MetricManager(),
+                                 max_batch=BATCH_K, device=dev)
+            # the second handle: a chain from the first half into the
+            # isolated second half, one tagged commit a link
+            chain = [vids[0]] + vids[half:half + FEED_COMMITS]
+            for a, b in zip(chain, chain[1:]):
+                tx = g2.new_transaction(log_identifier="chip")
+                tx.vertex(a).add_edge("link", tx.vertex(b))
+                tx.commit()
+            # the plane's own tagged commit: through the listener only
+            tx = g1.new_transaction(log_identifier="chip")
+            tx.vertex(chain[-1]).add_edge("link", tx.vertex(
+                vids[half + FEED_COMMITS]))
+            tx.commit()
+            rows = 2 * (FEED_COMMITS + 1)
+            deadline = time.time() + FEED_WAIT_S
+            while time.time() < deadline:
+                plane.pump()
+                if plane.overlay.count >= rows:
+                    break
+                time.sleep(0.05)
+            time.sleep(0.5)
+            plane.pump()
+            st = plane.stats()
+            check(plane.overlay.count == rows
+                  and st["counters"]["feed_batches"] == FEED_COMMITS
+                  and st["freshness"]["feed_pending"] == 0,
+                  f"the feed lane: {plane.overlay.count} rows of {rows}, "
+                  f"{st['counters']}")
+            srcs = [vids[0], vids[1], vids[half]]
+            specs = [JobSpec(kind="bfs", params={"source": v})
+                     for v in srcs]
+            jobs, _ = runs.run(lambda: serve(sched, specs))
+            check_done(jobs)
+            fresh = SN.build(g1, directed=False)
+            want, _, _ = P.frontier_bfs_batched(
+                fresh, [fresh.dense_of(v) for v in srcs], device=dev)
+            check(np.array_equal(bfs_rows(jobs), want), "a BFS served "
+                  "through the feed differs from the BFS on a rebuilt "
+                  "snapshot")
+            reach = jobs[0].result["dist"]
+            snap = plane.snapshot
+            check(all(reach[snap.dense_of(v)] < (1 << 30)
+                      for v in chain + [vids[half + FEED_COMMITS]]),
+                  "the BFS does not reach the second handle's chain")
+            say(f"phase 13b: sqlite, two handles, {FEED_VERTICES} vertices: "
+                f"the second handle's {FEED_COMMITS} tagged commits reached "
+                f"the plane through the feed ({st['counters']['feed_batches']}"
+                f" batches) and the plane's own once ({plane.overlay.count} "
+                f"overlay rows); the BFS served on {card} reaches the chain "
+                f"and equals the BFS on a rebuilt snapshot")
+            # ---- a vertex-set change: the host path, then apply_changes
+            tx = g1.new_transaction()
+            w = tx.add_vertex()
+            tx.vertex(vids[0]).add_edge("link", w)
+            tx.commit()
+            jobs, vs_s = runs.run(lambda: serve(sched, specs))
+            check_done(jobs)
+            s2 = plane.snapshot
+            row = jobs[0].result["dist"]
+            folds = compactions(sched)
+            check(s2.n == FEED_VERTICES + 1
+                  and row[s2.dense_of(w.id)] == row[s2.dense_of(vids[0])] + 1
+                  and [(c["why"], c["mode"]) for c in folds]
+                  == [("vertex-set change", "host")]
+                  and plane.compactor.fallbacks == {"apply-path": 1},
+                  f"the vertex-set change: {folds}, fallbacks "
+                  f"{plane.compactor.fallbacks}")
+            fresh = SN.build(g1, directed=False)
+            want, _, _ = P.frontier_bfs_batched(
+                fresh, [fresh.dense_of(v) for v in srcs], device=dev)
+            check(np.array_equal(bfs_rows(jobs), want), "the BFS after the "
+                  "vertex-set change differs from the BFS on a rebuilt "
+                  "snapshot")
+            say(f"phase 13b: one vertex with an edge committed; the plane "
+                f"folded on the host path ({folds[0]}) and the next BFS "
+                f"({vs_s:.3f} s) reaches it, equal to the BFS on a rebuilt "
+                f"snapshot")
+        finally:
+            if sched is not None:
+                sched.close()
+            g1.close()
+            g2.close()
 
 def sssp_round_split(trace) -> list[dict]:
     """Per round from a drained ``_trace_rounds``: the plan's seconds and
@@ -3808,11 +4429,24 @@ def main() -> int:
               f"launched on the {path} path: {runs.total}")
         say(f"phase 11: {path} launches {runs.total}")
     store_runs = ServedLaunches(F, S)
-    phase_store_ingest(P, G, ref, card, store_runs)
+    _, store_g, fresh = phase_store_ingest(P, G, ref, card, store_runs)
     check(store_runs.total["frontier_round"] > 0
           and store_runs.total["seg_scan"] > 0, f"a kernel was never "
           f"launched on the store path: {store_runs.total}")
     say(f"phase 12: store launches {store_runs.total}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    plane_runs = ServedLaunches(F, S)
+    try:
+        phase_live_plane(P, FR, SN, card, store_g, plane_runs, fresh)
+    finally:
+        store_g.close()
+    del store_g, fresh
+    phase_live_feed(P, SN, card, plane_runs)
+    check(all(plane_runs.total[k] > 0 for k in plane_runs.total),
+          f"a kernel was never launched on the plane path: "
+          f"{plane_runs.total}")
+    say(f"phase 13: plane launches {plane_runs.total}")
     gc.collect()          # the store and its snapshots, before s26
     del ref               # and with it the s22 graph cached on the card
     torch.cuda.empty_cache()
@@ -3832,14 +4466,17 @@ def main() -> int:
                                "interactive":
                                    lane_runs.total["frontier_round"]}
     rec["launches_by_path"]["store"] = store_runs.total["frontier_round"]
+    rec["launches_by_path"]["plane"] = plane_runs.total["frontier_round"]
     rec["launches"] = sum(rec["launches_by_path"].values())
     seg_rec["launches_by_path"]["store"] = store_runs.total["seg_scan"]
+    seg_rec["launches_by_path"]["plane"] = plane_runs.total["seg_scan"]
     seg_rec["launches"] = sum(seg_rec["launches_by_path"].values())
     x_rec["launches_by_path"].update(
         serving=served["batched_exhaust"],
         live=live_runs.total["batched_exhaust"],
         interactive=lane_runs.total["batched_exhaust"],
-        store=store_runs.total["batched_exhaust"])
+        store=store_runs.total["batched_exhaust"],
+        plane=plane_runs.total["batched_exhaust"])
     x_rec["launches"] = sum(x_rec["launches_by_path"].values())
     print(json.dumps({"kernels": [rec, seg_rec, x_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {

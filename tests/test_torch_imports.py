@@ -42,7 +42,8 @@ SERVING = [("olap", "serving", m) for m in (
     "__init__", "autotune", "batcher", "hbm", "jobs", "pool", "scheduler",
     "tenants")] + [("olap", "serving", "interactive", m) for m in (
         "__init__", "collector", "compile", "scheduler")] + [
-    ("olap", "live", m) for m in ("__init__", "compactor", "overlay")] + [
+    ("olap", "live", m) for m in ("__init__", "compactor", "feed",
+                                  "overlay", "plane")] + [
     ("ops", "epoch_merge")] + [("obs", m) for m in (
         "__init__", "devprof", "flightrec", "slo", "tracing")] + [
     ("utils", "__init__"), ("utils", "metrics")]
@@ -57,10 +58,11 @@ def test_the_serving_obs_and_utils_modules_are_scanned():
 
 def test_importing_the_serving_layer_loads_no_jax():
     """At run time too: importing the serving layer, its interactive lane,
-    the live plane's compactor and epoch merge, the observability plane
-    and the metrics registry in a fresh interpreter loads no module of
-    jax or titan_tpu (imports inside functions included, since the
-    scheduler and the lane run some on their workers)."""
+    the live plane (feed, plane, compactor, epoch merge), the
+    observability plane and the metrics registry in a fresh interpreter,
+    and serving a job over a live plane, loads no module of jax or
+    titan_tpu (imports inside functions included, since the scheduler,
+    the lane and the plane's pump run some on their workers)."""
     code = (
         "import sys\n"
         "import titan_tpu_torch.olap.serving as S\n"
@@ -70,6 +72,7 @@ def test_importing_the_serving_layer_loads_no_jax():
         "titan_tpu_torch.olap.serving.interactive.compile, "
         "titan_tpu_torch.olap.serving.interactive.scheduler\n"
         "import titan_tpu_torch.olap.live.compactor, "
+        "titan_tpu_torch.olap.live.feed, titan_tpu_torch.olap.live.plane, "
         "titan_tpu_torch.ops.epoch_merge\n"
         "import titan_tpu_torch.utils.metrics\n"
         "import numpy as np\n"
@@ -85,6 +88,22 @@ def test_importing_the_serving_layer_loads_no_jax():
         "'hops': 2, 'terminal': 'count'}))\n"
         "assert r['result'] == 1, r\n"
         "s.close()\n"
+        "import titan_tpu_torch\n"
+        "from titan_tpu_torch.olap.live import LiveGraphPlane\n"
+        "g = titan_tpu_torch.open('inmemory')\n"
+        "tx = g.new_transaction()\n"
+        "a, b, c = (tx.add_vertex('node') for _ in range(3))\n"
+        "a.add_edge('link', b)\n"
+        "tx.commit()\n"
+        "p = LiveGraphPlane(g, device='cpu', poll_interval_s=0.01)\n"
+        "s = S.JobScheduler(live=p, device='cpu', hbm_budget_bytes=1e9)\n"
+        "tx = g.new_transaction()\n"
+        "tx.vertex(b.id).add_edge('link', tx.vertex(c.id))\n"
+        "tx.commit()\n"
+        "j = s.submit(JobSpec(kind='bfs', params={'source': a.id}))\n"
+        "assert j.wait(60) and j.result['reached'] == 3, j.error\n"
+        "s.close()\n"
+        "g.close()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'titan_tpu'))\n"
         "print(bad)\n")
@@ -104,12 +123,12 @@ SPINE = [("errors",), ("factory",), ("utils", "times"), ("utils", "varint"),
                            "attributes", "edges")] + [
     ("ids", m) for m in ("__init__", "idmanager", "assigner", "authority",
                          "placement", "pool")] + [
-    ("storage", m) for m in ("__init__", "api", "inmemory", "cache",
-                             "config_store", "locking", "log", "tx",
-                             "backend", "registry")] + [
+    ("storage", m) for m in ("__init__", "api", "inmemory", "sqlitekv",
+                             "cache", "config_store", "locking", "log",
+                             "tx", "backend", "registry")] + [
     ("core", m) for m in ("__init__", "defs", "attribute", "system_types",
                           "schema", "elements", "relations", "tx",
-                          "changes", "management", "graph")]
+                          "changes", "wal", "management", "graph")]
 
 
 def test_the_graph_spine_is_scanned():
@@ -121,8 +140,8 @@ def test_the_graph_spine_is_scanned():
 
 def test_a_graph_run_loads_no_jax():
     """In a fresh interpreter: open("inmemory"), a bulk load, a snapshot
-    build and one compute() on the CPU load no module of jax or
-    titan_tpu."""
+    build and one compute() on the CPU, then a sqlite graph with its WAL
+    and a change-log processor, load no module of jax or titan_tpu."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -136,6 +155,23 @@ def test_a_graph_run_loads_no_jax():
         "assert snap.n == 32 and snap.num_edges == 64\n"
         "r = pagerank.run(g.compute(device='cpu'))\n"
         "assert r.iterations == 20 and abs(r['rank'].sum() - 1) < 1e-4\n"
+        "g.close()\n"
+        "import tempfile, time\n"
+        "d = tempfile.mkdtemp()\n"
+        "g = titan_tpu_torch.open({'storage.backend': 'sqlite',\n"
+        "                          'storage.directory': d,\n"
+        "                          'tx.log-tx': True})\n"
+        "seen = []\n"
+        "titan_tpu_torch.open_log_processors(g).add_log_processor('x')"
+        ".set_start_time(0).add_processor(\n"
+        "    lambda gr, txid, st: seen.append(txid)).build()\n"
+        "tx = g.new_transaction(log_identifier='x')\n"
+        "tx.add_vertex('node')\n"
+        "tx.commit()\n"
+        "t0 = time.time()\n"
+        "while not seen and time.time() - t0 < 30:\n"
+        "    time.sleep(0.02)\n"
+        "assert len(seen) == 1, seen\n"
         "g.close()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'titan_tpu'))\n"

@@ -1,7 +1,8 @@
 """The serving layer's parts one by one: the device-memory ledger, the
 pool, the job state machine, the batch key, the device default, what is
-not ported yet (each refusal names its ROADMAP item), the computer's
-``run_async`` and the kernel-library build under two threads."""
+not ported yet (each refusal names its ROADMAP item), the live plane
+behind ``live=``, the computer's ``run_async`` and the kernel-library
+build under two threads."""
 
 import shutil
 import threading
@@ -33,6 +34,18 @@ def _snap(n=64, m=200, seed=1):
     s = rng.integers(0, n, m)
     d = rng.integers(0, n, m)
     return PS.from_arrays(n, np.concatenate([s, d]), np.concatenate([d, s]))
+
+
+def _plane():
+    """A live plane over a small port graph, on the CPU."""
+    import titan_tpu_torch
+    from titan_tpu_torch.olap.live import LiveGraphPlane
+    g = titan_tpu_torch.open("inmemory")
+    tx = g.new_transaction()
+    vs = [tx.add_vertex("node") for _ in range(4)]
+    vs[0].add_edge("link", vs[1])
+    tx.commit()
+    return LiveGraphPlane(g, device="cpu"), g
 
 
 # --------------------------------------------------------------------------
@@ -139,9 +152,7 @@ def test_pool_leases_the_fixed_snapshot():
 @pytest.mark.parametrize("kw,item", [
     # item 6b is ported: a graph beside a fixed snapshot is kept, and the
     # fixed snapshot is leased, as in the JAX pool
-    pytest.param({"graph": object()}, None, id="kw0-6b"),
-    pytest.param({"live": object()}, "LiveGraphPlane",
-                 id="kw1-LiveGraphPlane")])
+    pytest.param({"graph": object()}, None, id="kw0-6b")])
 def test_pool_refuses_what_is_not_ported(kw, item):
     if item is None:
         snap = _snap()
@@ -155,9 +166,23 @@ def test_pool_refuses_what_is_not_ported(kw, item):
         SnapshotPool(snapshot=_snap(), **kw)
 
 
+def test_pool_leases_the_live_planes_pairs():
+    plane, g = _plane()
+    try:
+        pool = SnapshotPool(live=plane)
+        assert pool.graph is g and plane._republish is not None
+        with pool.acquire() as s:
+            assert s is plane.snapshot
+        assert pool.ready() == (True, "live plane at epoch 0")
+        assert pool.stats()["live_epoch"] == 0
+        pool.close()
+    finally:
+        plane.close()
+        g.close()
+
+
 @pytest.mark.parametrize("kw,item", [
     pytest.param({"mesh": object()}, "item 9", id="kw0-item 9"),
-    pytest.param({"live": object()}, "item 8", id="kw1-items 6b and 8"),
     # item 6b is ported: a scheduler over a graph builds its pool's
     # snapshots from it, lazily, at the first job
     pytest.param({"graph": object(), "snapshot": None}, None,
@@ -174,6 +199,19 @@ def test_scheduler_refuses_what_is_not_ported(kw, item):
         return
     with pytest.raises(NotImplementedError, match=item):
         JobScheduler(device="cpu", autostart=False, **kw)
+
+
+def test_scheduler_lends_the_plane_its_ledger_and_tracer_and_closes_it():
+    plane, g = _plane()
+    try:
+        s = JobScheduler(device="cpu", autostart=False, live=plane)
+        assert s.live is plane and plane._ledger is s.ledger
+        assert plane._tracer is s.tracer and s.pool._live is plane
+        s.close()
+        assert plane._closed
+    finally:
+        plane.close()
+        g.close()
 
 
 def test_interactive_lane_names_its_roadmap_item():

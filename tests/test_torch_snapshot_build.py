@@ -132,6 +132,37 @@ def test_the_three_scans_agree(twin, monkeypatch):
                 else a == b, f
 
 
+@pytest.mark.parametrize("make,path", [
+    pytest.param(lambda r: (np.arange(1000, dtype=np.int64) + 7) << 8 | 3,
+                 "table", id="dense"),
+    pytest.param(lambda r: np.unique(r.integers(1, 1 << 40, 1000)),
+                 "search", id="sparse"),
+    pytest.param(lambda r: np.sort(np.repeat(r.integers(1, 1 << 20, 500),
+                                             2)), "search", id="repeated"),
+    pytest.param(lambda r: np.array([42], np.int64), "search", id="one")])
+def test_dense_index_finds_every_member(make, path, monkeypatch):
+    """``build``'s id lookup: a member's index equals np.searchsorted's
+    and a ghost never matches, on the table path and on the fallback."""
+    rng = np.random.default_rng(0)
+    ids = make(rng)
+    ghosts = np.array([0, -5, 17, 1 << 50, int(ids[-1]) + 1], np.int64)
+    ghosts = ghosts[~np.isin(ghosts, ids)]
+    raw = rng.permutation(np.concatenate(
+        [ids[rng.integers(0, len(ids), 5000)], ghosts]))
+    calls = []
+    real = np.searchsorted
+    monkeypatch.setattr(np, "searchsorted",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = PS._dense_index(ids, raw)
+    monkeypatch.undo()
+    assert bool(calls) == (path == "search")
+    member = np.isin(raw, ids)
+    assert np.array_equal(got[member],
+                          np.searchsorted(ids, raw)[member])
+    got = np.clip(got, 0, len(ids) - 1)
+    assert not (ids[got[~member]] == raw[~member]).any()
+
+
 def test_removed_vertices_and_edges(twin):
     def change(tx, vids):
         tx.vertex(vids[2]).remove()

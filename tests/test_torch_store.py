@@ -4,7 +4,8 @@ byte-equal edgestore rows, equal vertex and relation ids, equal mutation
 epochs and equal change payloads. The other stores (ids, locks, config)
 carry the instance id and timestamps, so they are compared structurally
 only. What the port leaves out raises NotImplementedError naming ROADMAP
-queue 1, item 11."""
+queue 1, item 11; the sqlite store, the WAL and the log processors are
+ported (tests/test_torch_sqlite_wal.py)."""
 
 import numpy as np
 import pytest
@@ -181,26 +182,53 @@ def test_listeners_are_held_weakly():
         g.close()
 
 
-@pytest.mark.parametrize("backend", ["sqlite", "gdbm", "remote",
-                                     "remote-cluster"])
+@pytest.mark.parametrize("backend", ["gdbm", "remote", "remote-cluster"])
 def test_other_stores_name_their_roadmap_item(backend):
     with pytest.raises(NotImplementedError, match="item 11"):
         titan_tpu_torch.open({"storage.backend": backend,
                               "storage.directory": "unused"})
 
 
+def test_sqlite_store_keeps_commits_across_a_reopen(tmp_path):
+    """tests/test_torch_sqlite_wal.py holds the rows to the JAX store."""
+    config = {"storage.backend": "sqlite",
+              "storage.directory": str(tmp_path / "db")}
+    g = titan_tpu_torch.open(config)
+    tx = g.new_transaction()
+    vid = tx.add_vertex("node", name="kept").id
+    tx.commit()
+    g.close()
+    g = titan_tpu_torch.open(config)
+    try:
+        assert g.new_transaction().vertex(vid).value("name") == "kept"
+    finally:
+        g.close()
+
+
 @pytest.mark.parametrize("config", [
-    {"tx.log-tx": True}, {"metrics.enabled": True},
-    {"index.search.backend": "memindex"}])
+    {"metrics.enabled": True}, {"index.search.backend": "memindex"}])
 def test_refused_options_name_their_roadmap_item(config):
     with pytest.raises(NotImplementedError, match="item 11"):
         titan_tpu_torch.open({"storage.backend": "inmemory", **config})
 
 
+def test_log_tx_option_builds_the_wal():
+    """tests/test_torch_sqlite_wal.py holds the records to the JAX WAL."""
+    from titan_tpu_torch.core.wal import TransactionLog
+    g = titan_tpu_torch.open({"storage.backend": "inmemory",
+                              "tx.log-tx": True})
+    try:
+        assert isinstance(g._wal, TransactionLog)
+        tx = g.new_transaction()
+        tx.add_vertex(name="walled")
+        tx.commit()
+    finally:
+        g.close()
+
+
 @pytest.mark.parametrize("call", [
     lambda g: g.traversal(), lambda g: g.query(),
     lambda g: g.index_query("ix", "x"), lambda g: g.index_provider("s"),
-    lambda g: titan_tpu_torch.open_log_processors(g),
     lambda g: g.compute(backend="host"), lambda g: g.compute(backend="tpu"),
     lambda g: g.new_transaction().query(),
     lambda g: g.add_vertex().query(),
@@ -208,7 +236,7 @@ def test_refused_options_name_their_roadmap_item(config):
     .build_mixed_index("search"),
     lambda g: g.management().update_index("ci", "reindex")],
     ids=["traversal", "query", "index_query", "index_provider",
-         "open_log_processors", "host", "tpu", "tx.query", "vertex.query",
+         "host", "tpu", "tx.query", "vertex.query",
          "mixed_index", "reindex"])
 def test_refused_methods_name_their_roadmap_item(call):
     g = titan_tpu_torch.open("inmemory")
@@ -219,6 +247,17 @@ def test_refused_methods_name_their_roadmap_item(call):
         m.commit()
         with pytest.raises(NotImplementedError, match="item 11"):
             call(g)
+    finally:
+        g.close()
+
+
+def test_open_log_processors_returns_the_framework():
+    """tests/test_torch_sqlite_wal.py holds the processors to JAX's."""
+    from titan_tpu_torch.core.changes import LogProcessorFramework
+    g = titan_tpu_torch.open("inmemory")
+    try:
+        fw = titan_tpu_torch.open_log_processors(g)
+        assert isinstance(fw, LogProcessorFramework) and fw.graph is g
     finally:
         g.close()
 

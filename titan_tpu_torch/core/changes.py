@@ -6,9 +6,9 @@ commit; graphdb/log/StandardLogProcessorFramework.java +
 core/log/LogProcessorFramework.java deliver a ``ChangeState`` of
 added/removed elements per committed transaction to registered processors.)
 
-The port's copy keeps the in-process side (``ChangeQueue``, ``ChangeState``,
-``change_payload``); the log processors (``LogProcessorFramework``) are not
-ported (ROADMAP queue 1, item 11).
+The port's copy of ``titan_tpu/core/changes.py``: the in-process side
+(``ChangeQueue``, ``ChangeState``, ``change_payload``) and the durable
+log's processors (``LogProcessorFramework``).
 
 Payload layout (self-describing serializer):
   {"txid": int, "time": int,
@@ -19,7 +19,13 @@ rel = {"rel_id", "type", "out", "in"(edges) | "value"(properties)}
 
 from __future__ import annotations
 
-from typing import Optional
+import logging
+import threading
+from typing import Callable, Optional
+
+from titan_tpu_torch.storage.log import LogMessage, ReadMarker
+
+log_ = logging.getLogger(__name__)
 
 USER_LOG_PREFIX = "ulog_"
 
@@ -130,3 +136,88 @@ def change_payload(graph, tx, txid: int) -> dict:
         "removed": [rel_dict(r) for r in tx._deleted.values()
                     if not sys.is_system(r.type_id)],
     }
+
+
+class LogProcessorBuilder:
+    def __init__(self, framework: "LogProcessorFramework", identifier: str):
+        self._framework = framework
+        self._identifier = identifier
+        self._processors: list[Callable] = []
+        self._start_time: Optional[int] = None
+        self._reader_id: Optional[str] = None
+        self._read_interval_ms: Optional[int] = None
+
+    def set_start_time_now(self) -> "LogProcessorBuilder":
+        self._start_time = None
+        return self
+
+    def set_start_time(self, t: int) -> "LogProcessorBuilder":
+        self._start_time = t
+        return self
+
+    def set_processor_identifier(self, ident: str) -> "LogProcessorBuilder":
+        """Named readers persist their cursor and resume where they stopped
+        (reference: durable read markers, KCVSLog.java:31-35)."""
+        self._reader_id = ident
+        return self
+
+    def set_read_interval_ms(self, ms: int) -> "LogProcessorBuilder":
+        self._read_interval_ms = ms
+        return self
+
+    def add_processor(self, fn: Callable) -> "LogProcessorBuilder":
+        """fn(graph, txid, change_state)"""
+        self._processors.append(fn)
+        return self
+
+    def build(self) -> None:
+        self._framework._register(self._identifier, self._reader_id,
+                                  self._start_time, list(self._processors),
+                                  self._read_interval_ms)
+
+
+class LogProcessorFramework:
+    """(reference: StandardLogProcessorFramework — obtained via
+    ``titan_tpu_torch.open_log_processors(graph)``)"""
+
+    def __init__(self, graph):
+        self.graph = graph
+        self._lock = threading.Lock()
+        self._logs: list = []
+
+    def add_log_processor(self, identifier: str) -> LogProcessorBuilder:
+        return LogProcessorBuilder(self, identifier)
+
+    def _register(self, identifier: str, reader_id: Optional[str],
+                  start_time: Optional[int], processors: list,
+                  read_interval_ms: Optional[int] = None) -> None:
+        overrides = {}
+        if read_interval_ms is not None:
+            overrides["read_interval_ms"] = read_interval_ms
+        log = self.graph.backend.log_manager.open_log(
+            USER_LOG_PREFIX + identifier, **overrides)
+        ser = self.graph.serializer
+
+        def on_message(msg: LogMessage) -> None:
+            # per-message/per-processor error isolation: a raising processor
+            # must not wedge the bucket cursor and stall the whole stream
+            # (reference: StandardLogProcessorFramework catches per-processor
+            # Throwables)
+            try:
+                state = ChangeState(ser.value_from_bytes(msg.content),
+                                    sender=msg.sender)
+            except Exception:
+                log_.warning("undecodable change message on %s; skipped",
+                             identifier, exc_info=True)
+                return
+            for fn in processors:
+                try:
+                    fn(self.graph, state.txid, state)
+                except Exception:
+                    log_.warning("change processor %r failed for tx %s",
+                                 fn, state.txid, exc_info=True)
+
+        marker = ReadMarker(identifier=reader_id, start_time=start_time)
+        log.register_reader(marker, on_message)
+        with self._lock:
+            self._logs.append(log)

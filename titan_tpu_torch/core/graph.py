@@ -8,8 +8,8 @@ batched per-row store mutations.)
 The port's copy of ``titan_tpu/core/graph.py``. What the port leaves out
 raises ``NotImplementedError`` naming ROADMAP queue 1, item 11
 (``errors.not_ported``): ``traversal()``, ``query()`` and
-``index_query()``, mixed-index providers, the WAL (``tx.log-tx``) and
-``metrics.enabled``. ``compute()`` runs the port's ``GPUGraphComputer``.
+``index_query()``, mixed-index providers and ``metrics.enabled``.
+``compute()`` runs the port's ``GPUGraphComputer``.
 """
 
 from __future__ import annotations
@@ -81,11 +81,12 @@ class StandardGraph:
         self._listener_seq = 0
 
         # WAL (reference: tx.log-tx → txlog writes in the commit path)
-        if config.get(d.LOG_TX):
-            self.backend.instance_registry.deregister(self.instance_id)
-            self.backend.close()
-            raise not_ported("the write-ahead log (tx.log-tx)")
         self._wal = None
+        if config.get(d.LOG_TX):
+            from titan_tpu_torch.core.wal import TransactionLog
+            self._wal = TransactionLog(
+                self.backend.log_manager.open_log(config.get(d.TX_LOG_NAME)),
+                self.serializer)
         self.id_assigner = IDAssigner(
             self.idm, self.backend.id_authority,
             block_size=config.get(d.IDS_BLOCK_SIZE),

@@ -1,7 +1,7 @@
 """Per-job binding of the checkpoint plane: cadence, faults, metrics
 (the port's copy of ``titan_tpu/olap/recovery/checkpoint.py``; ``metrics``
 is a ``store.Counters`` or None). The scheduler and batcher named below
-are the JAX package's; the port's are ROADMAP queue 1, item 8.
+are the port's ``olap/serving/``.
 
 The scheduler attaches a ``JobRecovery`` to a job at submit time when
 checkpointing is enabled (``JobScheduler(checkpoint_dir=...)`` +

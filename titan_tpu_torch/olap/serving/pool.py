@@ -17,9 +17,9 @@ shared by every concurrent job, leased under the snapshot's epoch and
 The snapshot ``acquire()`` returns has ``epoch >= graph.mutation_epoch``
 as read when the call began. ``SnapshotPool(snapshot=...)`` pins one
 fixed snapshot instead, leased before ``labels`` or ``directed`` are
-looked at, so it answers every label set (as in the JAX package). The
-live plane (``live=``, ``olap/live/plane.py``) is not ported yet
-(ROADMAP queue 1, item 8).
+looked at, so it answers every label set (as in the JAX package).
+``SnapshotPool(live=plane)`` leases the live plane's (snapshot, overlay
+view) pairs (``olap/live/plane.py``).
 """
 
 from __future__ import annotations
@@ -30,8 +30,10 @@ from typing import Optional, Sequence
 
 class Lease:
     """Context-managed snapshot lease; ``release()`` (or ``with``) must
-    run exactly once. ``overlay``/``epoch_info`` stay None: they belong
-    to live-plane leases."""
+    run exactly once. ``overlay``/``epoch_info`` are set on live-plane
+    leases: the overlay view frozen at the same epoch as the snapshot
+    (the consistent pair jobs run against) and the epoch descriptor jobs
+    report; other leases leave them None."""
 
     __slots__ = ("snapshot", "_release", "_done", "overlay",
                  "epoch_info")
@@ -59,19 +61,27 @@ class Lease:
 class SnapshotPool:
     """See module doc. A fixed snapshot stays the caller's: the pool never
     closes it. ``on_close(snap)`` is told of every snapshot the pool
-    discards (the scheduler drops its ledger entry and device caches)."""
+    discards (the scheduler drops its ledger entry and device caches).
+
+    ``live=`` attaches a ``olap/live.LiveGraphPlane``: acquires whose key
+    matches the plane's (labels, no edge_keys, directed) lease the
+    plane's current (snapshot, overlay view) pair at a consistent epoch
+    instead of building or refreshing; a compaction republishes, and the
+    old base retires when its last lease drops, as on the
+    replace-when-leased path. Other keys go through build and refresh."""
 
     def __init__(self, graph=None, snapshot=None, on_close=None,
                  live=None):
-        if live is not None:
-            raise NotImplementedError(
-                "SnapshotPool(live=...): the live plane (LiveGraphPlane, "
-                "olap/live/plane.py) is not ported yet (ROADMAP queue 1, "
-                "item 8)")
+        if live is not None and graph is None:
+            graph = live.graph
         if graph is None and snapshot is None:
-            raise ValueError("SnapshotPool needs a graph or a snapshot")
+            raise ValueError("SnapshotPool needs a graph, a snapshot "
+                             "or a live plane")
         self.graph = graph
         self._fixed = snapshot
+        self._live = live
+        if live is not None:
+            live._republish = self._live_republish
         self._entries: dict = {}      # key -> current snapshot
         self._leases: dict = {}       # id(snap) -> count
         self._retired: dict = {}      # id(snap) -> snap awaiting close
@@ -114,6 +124,38 @@ class SnapshotPool:
         self._leases[id(snap)] = self._leases.get(id(snap), 0) + 1
         return Lease(snap, self._release)
 
+    def _live_republish(self, old, new) -> None:
+        """The plane's compaction and resync hook: the previous base
+        leaves the serving plane, retired while leases hold it and closed
+        outright otherwise (``on_close`` drops its ledger entry and
+        device caches either way)."""
+        to_close = None
+        with self._lock:
+            if self._leases.get(id(old), 0) > 0:
+                self._retired[id(old)] = old
+            else:
+                to_close = old
+        if to_close is not None:
+            self._close_snap(to_close)
+
+    def _acquire_live(self, compacted: bool) -> Lease:
+        plane = self._live
+        # plane lock → pool lock is the global order (republish runs
+        # under the plane lock and takes the pool lock); holding it
+        # across the lease keeps the (snapshot, view) pair and the
+        # lease count atomic with any concurrent compaction
+        with plane._lock:
+            if compacted:
+                plane.compact_if_dirty()
+            snap, view, info = plane.lease_state()
+            with self._lock:
+                if self._closed:
+                    raise RuntimeError("pool is closed")
+                lease = self._lease_locked(snap)
+                lease.overlay = view
+                lease.epoch_info = info
+                return lease
+
     # -- acquisition --------------------------------------------------------
 
     def acquire(self, labels: Optional[Sequence[str]] = None,
@@ -121,8 +163,9 @@ class SnapshotPool:
                 directed: bool = False,
                 compacted: bool = False) -> Lease:
         """Lease a snapshot for these parameters whose epoch covers every
-        commit visible before this call (``compacted`` belongs to the
-        live plane and is ignored here).
+        commit visible before this call. ``compacted`` (the live plane's
+        compact-before-run, for dense window sweeps) folds the plane's
+        overlay first; other leases ignore it.
 
         The pool lock guards only the maps, so ``stats()`` and fast-path
         acquires never wait behind a store scan; build() and refresh()
@@ -137,6 +180,8 @@ class SnapshotPool:
         from titan_tpu_torch.olap import snapshot as snap_mod
 
         key = self.key_of(labels, edge_keys, directed)
+        if self._live is not None and key == self._live.pool_key:
+            return self._acquire_live(compacted)
         e0 = self.graph.mutation_epoch
         with self._lock:
             if self._closed:
@@ -201,6 +246,8 @@ class SnapshotPool:
         with self._lock:
             if self._closed:
                 return False, "pool closed"
+            if self._live is not None:
+                return True, f"live plane at epoch {self._live.epoch}"
             if self._fixed is not None:
                 return True, "fixed snapshot resident"
             if self.graph is not None:
@@ -210,12 +257,15 @@ class SnapshotPool:
 
     def stats(self) -> dict:
         with self._lock:
-            return {"entries": len(self._entries),
-                    # resident snapshots, a fixed one included
-                    "snapshots": len(self._entries)
-                    + (1 if self._fixed is not None else 0),
-                    "active_leases": sum(self._leases.values()),
-                    "retired": len(self._retired)}
+            out = {"entries": len(self._entries),
+                   # resident snapshots, a fixed one included
+                   "snapshots": len(self._entries)
+                   + (1 if self._fixed is not None else 0),
+                   "active_leases": sum(self._leases.values()),
+                   "retired": len(self._retired)}
+        if self._live is not None:
+            out["live_epoch"] = self._live.epoch
+        return out
 
     def close(self) -> None:
         with self._lock:

@@ -95,9 +95,11 @@ scheduler's pool, ledger, tenants, tracer and profiler.
 
 Over a graph (``graph=``) the pool builds and refreshes one snapshot per
 job's labels, edge keys and orientation; a snapshot it discards leaves
-the HBM ledger (``_forget_snapshot``). Not ported: the live plane that
-owns an overlay and its compactor (``live=``, ``olap/live/plane.py``,
-ROADMAP queue 1, item 8) and mesh placement (``mesh=``, item 9); each
+the HBM ledger (``_forget_snapshot``). ``live=`` attaches a live plane
+(``olap/live/plane.py``): jobs of its key lease (snapshot, overlay view)
+pairs, the plane borrows this scheduler's ledger and tracer, and
+``close()`` closes it; the plane must serve on this scheduler's device.
+Not ported: mesh placement (``mesh=``, ROADMAP queue 1, item 9), which
 raises NotImplementedError.
 """
 
@@ -110,7 +112,7 @@ import threading
 import time
 from typing import Optional
 
-from titan_tpu_torch.device import resolve_device
+from titan_tpu_torch.device import cache_key, resolve_device
 from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.obs.flightrec import FlightRecorder
 from titan_tpu_torch.obs.tracing import TraceHandle, Tracer
@@ -158,11 +160,6 @@ class JobScheduler:
                  autotune_clock=None,
                  autotune_params: Optional[dict] = None,
                  device=None):
-        if live is not None:
-            raise NotImplementedError(
-                "JobScheduler(live=...): the live plane (LiveGraphPlane, "
-                "olap/live/plane.py) is not ported yet (ROADMAP queue 1, "
-                "item 8)")
         if mesh is not None:
             raise NotImplementedError(
                 "JobScheduler(mesh=...): mesh-placed batches belong to the "
@@ -170,6 +167,11 @@ class JobScheduler:
         # the device every job runs on; None means CUDA and raises
         # without a card
         self.device = resolve_device(device)
+        if live is not None and cache_key(live.device) \
+                != cache_key(self.device):
+            # never move a plane's work to another device silently
+            raise ValueError(f"the live plane serves on {live.device}, "
+                             f"the scheduler on {self.device}")
         # observability plane (titan_tpu/obs): one tracer per scheduler,
         # one trace per job (trace id == job id) — submit/queue/attempt
         # spans here, fuse/run/round/checkpoint spans in the batcher &
@@ -214,15 +216,35 @@ class JobScheduler:
                 self._own_profiler = True
         if self._own_profiler:
             self.profiler.install()
-        self.live = None
-        self.pool = SnapshotPool(graph, snapshot)
+        # live plane (olap/live): jobs lease (snapshot, overlay) pairs
+        # at a consistent epoch instead of refresh/rebuild churn; the
+        # scheduler OWNS the plane's lifecycle once attached (close()
+        # closes it) and lends it the HBM ledger so overlay growth is
+        # admission-controlled
+        self.live = live
+        self.pool = SnapshotPool(graph, snapshot, live=live)
         # retired and closed snapshots must not stay ledger-resident
         self.pool.on_close = self._forget_snapshot
         # the evictable map must exist BEFORE the ledger (whose
-        # on_evict callback reads it)
+        # on_evict callback reads it) and before the live plane's
+        # hooks: the plane's pump thread is already running and can
+        # fire a device-merged compaction mid-__init__
         self._evictable: dict = {}    # ledger key -> snapshot (cache drop)
         self.ledger = HBMLedger(hbm_budget_bytes, on_evict=self._evict,
                                 device=self.device)
+        if live is not None and live._ledger is None:
+            live._ledger = self.ledger
+        if live is not None and getattr(live, "_tracer", None) is None:
+            # the plane records apply/compaction epochs under the
+            # reserved "live" trace id (GET /trace?job=live)
+            live._tracer = self.tracer
+        if live is not None:
+            # device-merged epochs arrive ledger-resident with their
+            # CSR pre-attached (no upload); register them in the
+            # eviction map so an HBM eviction of the unpinned epoch
+            # actually drops the device arrays
+            live._on_resident = (
+                lambda snap: self._evictable.setdefault(id(snap), snap))
         self.batcher = Batcher(max_batch=max_batch, device=self.device)
         self.max_batch = max_batch
         # (self._metrics was bound before the recorder/profiler above)
@@ -379,6 +401,8 @@ class JobScheduler:
                 job.fail("scheduler closed", permanent=True)
                 self._finalize_metrics(job)
         self.pool.close()
+        if self.live is not None:
+            self.live.close()
         # detach OUR gauge callbacks (identity-checked: a successor
         # scheduler that already re-registered over the same names
         # must not be clobbered) — the gauges read 0.0 afterwards

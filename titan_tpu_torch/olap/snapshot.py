@@ -759,7 +759,7 @@ def _native_classify(graph, col_buf, offs, entry_row_a, row_vids_raw,
     row_vids_a = idm.canonicalize_np(row_vids_raw)
 
     exists_rows = np.unique(entry_row_a[kind == native.KIND_EXISTS])
-    vertex_id_list = row_vids_a[exists_rows].tolist()
+    vertex_id_list = row_vids_a[exists_rows]
 
     edge_mask = kind == native.KIND_OUT_EDGE
     keep_counts, fast_counts = [], []
@@ -791,7 +791,30 @@ def _native_classify(graph, col_buf, offs, entry_row_a, row_vids_raw,
         srcs = np.concatenate([srcs, np.asarray(s_src, np.int64)])
         dsts = np.concatenate([dsts, np.asarray(s_dst, np.int64)])
         labs = np.concatenate([labs, np.asarray(s_lab, np.int64)])
-    return vertex_id_list, srcs, dsts, labs.tolist(), {}
+    return vertex_id_list, srcs, dsts, labs, {}
+
+
+def _dense_index(vertex_ids: np.ndarray, raw: np.ndarray) -> np.ndarray:
+    """Each raw id's index in the ascending, distinct ``vertex_ids``
+    where it is there, any index where it is not (the caller compares).
+    Shifted right by the bits of their smallest gap, the ids stay
+    distinct; where that span is at most 4n, one table gather replaces
+    ``np.searchsorted``'s random binary searches, the scan's costliest
+    step at scale. Otherwise ``np.searchsorted``."""
+    n = len(vertex_ids)
+    gap = int(np.diff(vertex_ids).min()) if n > 1 else 0
+    if gap < 1:
+        return np.searchsorted(vertex_ids, raw)
+    shift = gap.bit_length() - 1
+    lo = int(vertex_ids[0]) >> shift
+    span = (int(vertex_ids[-1]) >> shift) - lo + 1
+    if span > 4 * n:
+        return np.searchsorted(vertex_ids, raw)
+    table = np.zeros(span, np.int64)
+    table[(vertex_ids >> shift) - lo] = np.arange(n, dtype=np.int64)
+    key = (raw >> shift) - lo
+    np.clip(key, 0, span - 1, out=key)
+    return table[key]
 
 
 def build(graph, labels: Optional[Sequence[str]] = None,
@@ -882,15 +905,15 @@ def build(graph, labels: Optional[Sequence[str]] = None,
     if token is None:
         raise RuntimeError("build(): no scan was verified")
 
-    vertex_ids = np.array(sorted(vertex_id_list), dtype=np.int64)
+    vertex_ids = np.sort(np.asarray(vertex_id_list, dtype=np.int64))
     del vertex_id_list
     n = len(vertex_ids)
     raw_src = np.asarray(srcs, dtype=np.int64)
     raw_dst = np.asarray(dsts, dtype=np.int64)
     del srcs, dsts
     # drop edges whose endpoint is missing (ghosts)
-    si = np.searchsorted(vertex_ids, raw_src)
-    di = np.searchsorted(vertex_ids, raw_dst)
+    si = _dense_index(vertex_ids, raw_src)
+    di = _dense_index(vertex_ids, raw_dst)
     si = np.clip(si, 0, max(n - 1, 0))
     di = np.clip(di, 0, max(n - 1, 0))
     ok = np.ones(len(raw_src), dtype=bool)
@@ -900,7 +923,7 @@ def build(graph, labels: Optional[Sequence[str]] = None,
     src = si[ok].astype(np.int32)
     dst = di[ok].astype(np.int32)
     del si, di
-    labs_arr = np.array(labs, dtype=np.int32)[ok]
+    labs_arr = np.asarray(labs, dtype=np.int32)[ok]
     evs = {name: np.array(vals)[ok] for name, vals in ev.items()}
     if not directed:
         src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])

@@ -4,7 +4,7 @@
 Backend.getStorageManager Backend.java:406-414 — shorthand → implementation
 map with reflective fallback to an import path.)
 
-The port's copy registers ``inmemory`` only; ``sqlite``, ``gdbm``,
+The port's copy registers ``inmemory`` and ``sqlite``; ``gdbm``,
 ``remote`` and ``remote-cluster`` raise ``NotImplementedError`` naming
 ROADMAP queue 1, item 11.
 """
@@ -49,6 +49,11 @@ def _inmemory(**kw):
     return InMemoryStoreManager()
 
 
+def _sqlite(directory=None, read_only=False, **kw):
+    from titan_tpu_torch.storage.sqlitekv import SqliteStoreManager
+    return SqliteStoreManager(directory, read_only)
+
+
 def _not_ported(shorthand: str):
     def refuse(**kw):
         raise not_ported(f"storage.backend={shorthand!r}")
@@ -56,5 +61,6 @@ def _not_ported(shorthand: str):
 
 
 register_store("inmemory", _inmemory)
-for _name in ("sqlite", "gdbm", "remote", "remote-cluster"):
+register_store("sqlite", _sqlite)
+for _name in ("gdbm", "remote", "remote-cluster"):
     register_store(_name, _not_ported(_name))

@@ -225,7 +225,23 @@ Phases, each of which raises on failure:
    fallback) reached by the next BFS, equal to a rebuild's. The served
    runs' launches are ``launches_by_path["plane"]``; all three kernels
    must be above zero. The store and its snapshots are freed before
-   s26.
+   s26;
+14. Gremlin traversals compiled onto the card
+   (``traversal/olap_compile.py``; no kernel of the port: each expand is
+   a gather and an int64 ``index_add_``). 14a on phase 12's refreshed
+   s22 store snapshot, passed explicitly before phase 12 closes it:
+   ``V().out().out().count()``, ``V().repeat(out()).times(3).count()``
+   (counts past 2^31 at a vertex), ``V(16 seeded ids).both().dedup()
+   .both().dedup().count()`` and ``V(hub).out().out().dedup().id_()``
+   through ``g.traversal().with_computer("gpu", snapshot=snap)``, each
+   held to have compiled (``run_compiled``) and equal to an int64 host
+   reference (scipy over the snapshot's src and dst); each chain's wall
+   and device ms, the largest count at one vertex, one expand's gather
+   and ``index_add_`` against their byte bounds. 14b (after phase 12):
+   the chain shapes of tests/test_olap_compile.py on the graph of the
+   gods and a seeded ``PROPERTY_VERTICES``-vertex labelled property
+   graph, compiled on CUDA and equal to the port's interpreter, and
+   K_50's 6-hop count equal to the interpreter's and to 50 * 49^6.
 
 The line before the last is the ``{"kernels": [...]}`` record of the
 three kernels (each record's ``launches`` sums its paths, listed under
@@ -3557,7 +3573,7 @@ def freshness_commit(g, snap, rng) -> None:
     tx.commit()
 
 
-def phase_store_ingest(P, G, ref, card, runs) -> tuple:
+def phase_store_ingest(P, G, ref, card, runs, traverse=None) -> tuple:
     """Phase 12, bench.py's store_ingest stage at s22 (``bench.py:992``):
     the R-MAT edges bulk-loaded into ``titan_tpu_torch.open("inmemory")``
     and scanned back into a symmetric snapshot (``ingest_rmat_store``),
@@ -3570,7 +3586,8 @@ def phase_store_ingest(P, G, ref, card, runs) -> tuple:
     record, the store's graph, open, its snapshots closed (phase 13
     serves it and closes it), and the refreshed snapshot's vertex arrays,
     epoch and BFS from the phase's source, which phase 13 holds its
-    plane's fresh scan to."""
+    plane's fresh scan to. ``traverse(graph, snapshot)``, when given, runs
+    on the refreshed snapshot before it is closed (phase 14a)."""
     from titan_tpu_torch import native
     from titan_tpu_torch.device import INF
     from titan_tpu_torch.models import pagerank as MP
@@ -3712,6 +3729,8 @@ def phase_store_ingest(P, G, ref, card, runs) -> tuple:
                                                 "out_degree")}
         fresh.update(epoch=csnap.epoch, num_edges=csnap.num_edges,
                      source=source, dist=d_fresh)
+        if traverse is not None:
+            traverse(g, csnap)
         sched.close()                    # closes the pool's snapshot
         sched = None
         rec.update(peak_rss_bytes=rss.stop(), start_rss_bytes=rss.first,
@@ -4293,6 +4312,300 @@ def phase_live_feed(P, SN, card, runs) -> None:
             g1.close()
             g2.close()
 
+# ---- phase 14: Gremlin traversals compiled onto the card
+
+#: the seeded starts of the s22 both() chain
+TRAVERSAL_STARTS = 16
+#: timed runs of each s22 chain after its first (checked) run
+TRAVERSAL_REPS = 3
+#: the seeded labelled property graph of the small-graph checks
+PROPERTY_VERTICES, PROPERTY_EDGES = 2000, 10000
+
+
+def run_compiled(OC, t):
+    """``t.to_list()`` through the user's entry point, held to have run
+    the compiled supersteps: ``try_compile`` matches the chain and the
+    device profiler's ``traversal.supersteps`` seam counts exactly one
+    call (the interpreter never reaches it, and a semantic fallback
+    would leave it at zero). Returns (result, wall s, device ms)."""
+    from titan_tpu_torch.obs import devprof
+    steps = type(t)._fold_has_into_start(list(t._steps))
+    check(OC.try_compile(steps, t.source) is not None,
+          f"the chain {steps} does not compile")
+    with devprof.DeviceCostProfiler() as prof:
+        out, wall = wall_s(t.to_list)
+        k = prof.kernel_stats().get("traversal.supersteps",
+                                    {"calls": 0, "exec_s": 0.0})
+    check(k["calls"] == 1, f"the chain {steps} did not run compiled "
+          f"({k['calls']} superstep runs)")
+    return out, wall, k["exec_s"] * 1e3
+
+
+def host_expand(A, c, direction: str):
+    """One expand of the int64 count vector ``c`` on the host: ``A`` is
+    the snapshot's edges as a scipy CSR with rows = dst, columns = src,
+    so ``A @ c`` sums c over each vertex's in-edges (out())."""
+    if direction == "out":
+        return A @ c
+    if direction == "in":
+        return A.T @ c
+    return A @ c + A.T @ c
+
+
+def s22_traversal_refs(snap, starts, hub) -> dict:
+    """The four s22 chains' answers in int64 on the host, computed from
+    the snapshot's src and dst alone (scipy sparse), and the largest
+    count at one vertex of the 2- and 3-hop chains."""
+    import scipy.sparse as sp
+    n = snap.n
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(
+        snap.dst, minlength=n), dtype=np.int64)])
+    A = sp.csr_matrix((np.ones(len(snap.src), np.int64), snap.src, indptr),
+                      shape=(n, n))
+    ones = np.ones(n, np.int64)
+    c1 = host_expand(A, ones, "out")
+    c2 = host_expand(A, c1, "out")
+    c3 = host_expand(A, c2, "out")
+    s = np.zeros(n, np.int64)
+    np.add.at(s, starts, 1)
+    s = (host_expand(A, s, "both") > 0).astype(np.int64)
+    s = host_expand(A, s, "both") > 0
+    h = np.zeros(n, np.int64)
+    h[hub] = 1
+    h = host_expand(A, host_expand(A, h, "out"), "out") > 0
+    for c in (c1, c2, c3):
+        check(c.dtype == np.int64 and (c >= 0).all(),
+              "the host reference is not a non-negative int64 count")
+    return {"out_out": int(c2.sum()), "repeat3": int(c3.sum()),
+            "both_dedup": int(s.sum()),
+            "hub_ids": snap.vertex_ids[np.flatnonzero(h)].tolist(),
+            "max2": int(c2.max()), "max3": int(c3.max())}
+
+
+def expand_parts(snap, dev) -> dict:
+    """One out() expand from all-ones counts at s22, by CUDA events: the
+    gather ``counts[src]`` and the ``index_add_`` into [n] apart, each
+    beside the time its bytes take at the card's memory rate (each
+    input read once, each output written once); and the same
+    ``index_add_`` into seeded uniform targets, which have no hub runs
+    (what the atomics' contention at hubs costs)."""
+    from titan_tpu_torch.olap.engine import device_graph
+    dg = device_graph(snap, dev)
+    n, e = snap.n, snap.num_edges
+    counts = torch.ones(n, dtype=torch.int64, device=dev)
+    contrib = counts.index_select(0, dg.src)
+    out = torch.zeros(n, dtype=torch.int64, device=dev)
+    gather = cuda_ms(lambda: counts.index_select(0, dg.src), 5)
+    scatter = cuda_ms(lambda: out.zero_().index_add_(0, dg.dst, contrib), 5)
+    flat = torch.randint(0, n, (e,), dtype=torch.int32, device=dev,
+                         generator=torch.Generator(dev).manual_seed(SEED))
+    uniform = cuda_ms(lambda: out.zero_().index_add_(0, flat, contrib), 5)
+    del flat
+    return {"gather_ms": round(gather, 4), "index_add_ms": round(scatter, 4),
+            "index_add_uniform_ms": round(uniform, 4),
+            "gather_bound_ms": round((4 * e + 8 * n + 8 * e)
+                                     / HBM_BYTES_PER_S * 1e3, 4),
+            "index_add_bound_ms": round((8 * e + 4 * e + 8 * n)
+                                        / HBM_BYTES_PER_S * 1e3, 4)}
+
+
+def phase_traversal_s22(F, S, OC, g, snap, card) -> None:
+    """Phase 14a on phase 12's s22 store snapshot (passed explicitly, so
+    nothing rescans the store): four chains through
+    ``g.traversal().with_computer("gpu", snapshot=snap)``, each compiled
+    (``run_compiled``) and equal to the int64 host reference; the 3-hop
+    chain's counts pass 2^31 at a vertex. Each chain's first run is
+    checked and timed (the first uploads the snapshot's edge arrays)
+    while the reference runs in a thread, then ``TRAVERSAL_REPS`` more
+    (one for the hub's ids) are timed."""
+    from titan_tpu_torch.traversal.dsl import anon
+    t0 = time.time()
+    rng = np.random.default_rng(SEED)
+    live = np.flatnonzero(snap.out_degree > 0)
+    starts = rng.choice(live, TRAVERSAL_STARTS, replace=False)
+    hub = int(np.argmax(snap.out_degree))
+    ref = Background(lambda: s22_traversal_refs(snap, starts, hub))
+    src = g.traversal().with_computer("gpu", snapshot=snap)
+    chains = {
+        "out_out": lambda: src.V().out().out().count(),
+        "repeat3": lambda: src.V().repeat(anon().out()).times(3).count(),
+        "both_dedup": lambda: src.V(*(int(snap.vertex_ids[s])
+                                      for s in starts))
+        .both().dedup().both().dedup().count(),
+        "hub_ids": lambda: src.V(int(snap.vertex_ids[hub])).out().out()
+        .dedup().id_(),
+    }
+    got, times = {}, {}
+    F.frontier_round.launches = F.batched_exhaust.launches = 0
+    S.seg_scan.launches = 0
+    for name, chain in chains.items():
+        out, wall, dev_ms = run_compiled(OC, chain())
+        got[name] = out if name == "hub_ids" else out[0]
+        times[name] = [(round(wall, 4), round(dev_ms, 4))]
+    want = ref.result()          # the timed runs with the host otherwise idle
+    for name, chain in chains.items():
+        # the hub's ids cost seconds of Python a run (a traverser an id)
+        for _ in range(1 if name == "hub_ids" else TRAVERSAL_REPS):
+            out, wall, dev_ms = run_compiled(OC, chain())
+            check((out if name == "hub_ids" else out[0]) == got[name],
+                  f"{name}: a repeat run differs")
+            times[name].append((round(wall, 4), round(dev_ms, 4)))
+    launches = {"frontier_round": F.frontier_round.launches,
+                "batched_exhaust": F.batched_exhaust.launches,
+                "seg_scan": S.seg_scan.launches}
+    for name in chains:
+        check(got[name] == want[name], f"{name}: the compiled answer "
+              f"{str(got[name])[:80]} differs from the int64 host "
+              f"reference {str(want[name])[:80]}")
+    check(want["max3"] > (1 << 31) - 1, f"the 3-hop chain's largest "
+          f"count {want['max3']} does not pass 2^31")
+    for name in chains:
+        say(f"phase 14a: s{STORE_SCALE} {name} on {card}: "
+            f"{str(got[name]) if name != 'hub_ids' else len(got[name])}"
+            f"{' ids' if name == 'hub_ids' else ''} equal to the int64 host "
+            f"reference; (wall s, device ms) first then warm: {times[name]}")
+    say(f"phase 14a: largest count at one vertex: 2 hops {want['max2']}, "
+        f"3 hops {want['max3']} (2^31 = {1 << 31}); kernel launches on the "
+        f"traversal path {launches} (its expand is index_add_, no kernel "
+        f"of the port)")
+    parts = expand_parts(snap, torch.device("cuda"))
+    say(f"phase 14a: one out() expand at s{STORE_SCALE} on {card}: "
+        + json.dumps(parts))
+    say(f"phase 14a: {time.time() - t0:.1f} s")
+
+
+def property_graph(seed: int):
+    """A seeded labelled property graph: ``PROPERTY_VERTICES`` persons and
+    places (name, age on persons, score), ``PROPERTY_EDGES`` edges labelled
+    knows, likes or visits, in one commit of the port's in-memory graph."""
+    import titan_tpu_torch
+    g = titan_tpu_torch.open("inmemory")
+    rng = np.random.default_rng(seed)
+    tx = g.new_transaction()
+    vs = []
+    for i in range(PROPERTY_VERTICES):
+        if i % 5:
+            vs.append(tx.add_vertex("person", name=f"p{i}",
+                                    age=int(rng.integers(1, 90)),
+                                    score=float(rng.random())))
+        else:
+            vs.append(tx.add_vertex("place", name=f"c{i}"))
+    labels = ("knows", "likes", "visits")
+    for a, b, k in zip(rng.integers(0, PROPERTY_VERTICES, PROPERTY_EDGES),
+                       rng.integers(0, PROPERTY_VERTICES, PROPERTY_EDGES),
+                       rng.integers(0, 3, PROPERTY_EDGES)):
+        if a != b:
+            vs[int(a)].add_edge(labels[int(k)], vs[int(b)])
+    tx.commit()
+    return g, [v.id for v in vs]
+
+
+#: tests/test_olap_compile.py's chain shapes, over (source, P, anon, a
+#: start id): labels, mid-chain has, values().sum()/mean(),
+#: groupCount().by(k), id, vertices, repeat().times()
+SMALL_CHAINS = {
+    "out_out_count": lambda t, P, A, v: t.V().out().out().count(),
+    "labels": lambda t, P, A, v: t.V().in_("likes").out("knows").count(),
+    "both": lambda t, P, A, v: t.V().both().count(),
+    "dedup": lambda t, P, A, v: t.V().out().out().dedup().count(),
+    "ids": lambda t, P, A, v: t.V(v).out().out().id_(),
+    "repeat_times": lambda t, P, A, v: t.V().repeat(A().out()).times(3)
+    .count(),
+    "has_start": lambda t, P, A, v: t.V().has("name", "p1").out().count(),
+    "vertices": lambda t, P, A, v: t.V().out("knows").dedup(),
+    "vertex_paths": lambda t, P, A, v: t.V().out("visits"),
+    "midchain_has": lambda t, P, A, v: t.V().out("knows")
+    .has("age", P.gt(40)).out().count(),
+    "values_sum": lambda t, P, A, v: t.V().out("knows").values("age")
+    .sum_(),
+    "values_mean": lambda t, P, A, v: t.V().out().out().values("age")
+    .mean(),
+    "values": lambda t, P, A, v: t.V().out("visits").values("name"),
+    "group_count_by": lambda t, P, A, v: t.V().out().group_count()
+    .by("age"),
+    "group_count": lambda t, P, A, v: t.V().out("likes").group_count(),
+    "ldbc_is3": lambda t, P, A, v: t.V(v).out("knows").out("knows")
+    .out("knows").out("knows").count(),
+}
+
+#: the gods (titan_tpu_torch/example.py)
+GODS_CHAINS = {
+    "two_hops": lambda t, P, A, v: t.V().out().out().count(),
+    "battled": lambda t, P, A, v: t.V().has("name", "hercules")
+    .out("battled").values("name"),
+    "brothers": lambda t, P, A, v: t.V().both("brother").dedup().id_(),
+    "ages": lambda t, P, A, v: t.V().out("father").values("age").sum_(),
+    "lives": lambda t, P, A, v: t.V().in_("lives").group_count()
+    .by("name"),
+}
+
+
+def canonical(x):
+    """A traversal output with vertices by id, in a sortable form (equal
+    values compare equal: a compiled sum is a float, the interpreter's
+    an int)."""
+    if type(x).__name__ in ("Vertex", "Edge"):
+        return ("element", x.id)
+    if isinstance(x, dict):
+        return sorted((repr(k), v) for k, v in x.items())
+    return x
+
+
+def phase_traversal_small(OC, card) -> None:
+    """Phase 14b on the card: every chain shape of
+    tests/test_olap_compile.py on the graph of the gods and a seeded
+    labelled property graph, compiled on CUDA (``run_compiled``) and
+    equal to the port's interpreter; K_50's 6-hop count equal to the
+    interpreter's and to 50 * 49^6 (past 2^31 at every vertex)."""
+    import titan_tpu_torch
+    from titan_tpu_torch import example
+    from titan_tpu_torch.query.predicates import P
+    from titan_tpu_torch.traversal.dsl import anon
+    t0 = time.time()
+    graphs = []
+    gods = titan_tpu_torch.open("inmemory")
+    example.load(gods)
+    graphs.append(("gods", gods, GODS_CHAINS,
+                   min(v.id for v in gods.traversal().V().to_list())))
+    pg, vids = property_graph(SEED)
+    graphs.append(("property", pg, SMALL_CHAINS, vids[1]))
+    try:
+        ran = 0
+        for what, g, chains, v in graphs:
+            dev = g.traversal().with_computer("gpu")
+            for name, chain in chains.items():
+                got, _, _ = run_compiled(OC, chain(dev, P, anon, v))
+                want = chain(g.traversal(), P, anon, v).to_list()
+                g.rollback()
+                check(sorted(map(canonical, got), key=repr)
+                      == sorted(map(canonical, want), key=repr),
+                      f"{what} {name}: compiled {str(got)[:80]} differs from "
+                      f"the interpreter's {str(want)[:80]}")
+                ran += 1
+        k50 = titan_tpu_torch.open("inmemory")
+        graphs.append(("k50", k50, None, None))
+        tx = k50.new_transaction()
+        vs = [tx.add_vertex("node") for _ in range(50)]
+        for a in vs:
+            for b in vs:
+                if a is not b:
+                    a.add_edge("link", b)
+        tx.commit()
+        def six(t):
+            return t.V().repeat(anon().out()).times(6).count()
+        got, _, _ = run_compiled(OC, six(k50.traversal().with_computer("gpu")))
+        want = six(k50.traversal()).to_list()
+        check(got == want == [50 * 49 ** 6], f"K_50 at 6 hops: compiled "
+              f"{got}, interpreter {want}, exact {50 * 49 ** 6}")
+        say(f"phase 14b: {ran} chains on the gods and a {PROPERTY_VERTICES}-"
+            f"vertex labelled property graph compiled on {card}, each equal "
+            f"to the interpreter; K_50 at 6 hops {got[0]} = 50 * 49^6 on "
+            f"the card and in the interpreter; {time.time() - t0:.1f} s")
+    finally:
+        for _, g, _, _ in graphs:
+            g.close()
+
+
 def sssp_round_split(trace) -> list[dict]:
     """Per round from a drained ``_trace_rounds``: the plan's seconds and
     the pushes' (from the end of this plan to the start of the next,
@@ -4377,6 +4690,7 @@ def main() -> int:
     from titan_tpu_torch.ops import epoch_merge as EM
     from titan_tpu_torch.ops import frontier as F
     from titan_tpu_torch.ops import seg_scan as S
+    from titan_tpu_torch.traversal import olap_compile as OC
 
     card = card_line()
     print(card, flush=True)
@@ -4429,11 +4743,15 @@ def main() -> int:
               f"launched on the {path} path: {runs.total}")
         say(f"phase 11: {path} launches {runs.total}")
     store_runs = ServedLaunches(F, S)
-    _, store_g, fresh = phase_store_ingest(P, G, ref, card, store_runs)
+    _, store_g, fresh = phase_store_ingest(
+        P, G, ref, card, store_runs,
+        traverse=lambda g, snap: phase_traversal_s22(F, S, OC, g, snap,
+                                                     card))
     check(store_runs.total["frontier_round"] > 0
           and store_runs.total["seg_scan"] > 0, f"a kernel was never "
           f"launched on the store path: {store_runs.total}")
     say(f"phase 12: store launches {store_runs.total}")
+    phase_traversal_small(OC, card)
     gc.collect()
     torch.cuda.empty_cache()
     plane_runs = ServedLaunches(F, S)

@@ -138,6 +138,58 @@ def test_the_graph_spine_is_scanned():
         assert path in FILES, path
 
 
+#: the queries, the traversal dsl with its compiled path, and the gods
+TRAVERSAL = [("query", m) for m in ("__init__", "predicates", "profile",
+                                    "graphquery", "vertexquery")] + [
+    ("traversal", m) for m in ("__init__", "dsl", "olap_compile")] + [
+    ("example",)]
+
+
+def test_the_queries_and_traversals_are_scanned():
+    for parts in TRAVERSAL:
+        path = ROOT.joinpath("titan_tpu_torch", *parts[:-1],
+                             parts[-1] + ".py")
+        assert path in FILES, path
+
+
+def test_a_traversal_run_loads_no_jax():
+    """In a fresh interpreter: the gods, a query, a vertex query, an
+    interpreted and a compiled traversal on the CPU, and a port traversal
+    through the interactive lane load no module of jax or titan_tpu."""
+    code = (
+        "import sys\n"
+        "import titan_tpu_torch\n"
+        "from titan_tpu_torch import example\n"
+        "from titan_tpu_torch.olap import snapshot\n"
+        "from titan_tpu_torch.olap.serving import JobScheduler\n"
+        "from titan_tpu_torch.olap.serving.interactive import "
+        "compile_traversal\n"
+        "from titan_tpu_torch.traversal.dsl import anon\n"
+        "g = titan_tpu_torch.open('inmemory')\n"
+        "example.load(g)\n"
+        "assert len(g.query().has('name', 'pluto').vertices()) == 1\n"
+        "h = g.traversal().V().has('name', 'hercules').next()\n"
+        "assert h.query().labels('battled').count() == 3\n"
+        "t = g.traversal().V().repeat(anon().out()).times(2).count()\n"
+        "c = g.traversal().with_computer('gpu', device='cpu')\n"
+        "ct = c.V().repeat(anon().out()).times(2).count()\n"
+        "assert t.to_list() == ct.to_list() and ct.profile().compiled\n"
+        "s = JobScheduler(snapshot=snapshot.build(g, directed=False),\n"
+        "                 device='cpu', hbm_budget_bytes=1e9)\n"
+        "plan = compile_traversal(g.traversal().V(h.id).out().out()"
+        ".dedup().count())\n"
+        "assert s.interactive().submit(plan)['result'] > 0\n"
+        "s.close()\n"
+        "g.close()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'titan_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_a_graph_run_loads_no_jax():
     """In a fresh interpreter: open("inmemory"), a bulk load, a snapshot
     build and one compute() on the CPU, then a sqlite graph with its WAL

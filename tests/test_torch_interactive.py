@@ -39,6 +39,7 @@ from titan_tpu_torch.olap.serving import interactive as PI
 from titan_tpu_torch.olap.serving.interactive import collector as PCol
 from titan_tpu_torch.olap.serving.interactive import compile as PComp
 from titan_tpu_torch.olap.serving.tenants import QuotaExceeded
+from titan_tpu_torch.traversal import dsl as PDsl
 from titan_tpu_torch.utils.metrics import MetricManager
 
 N, M, SEED = 192, 900, 42
@@ -195,8 +196,9 @@ def same_plan(jp, pp):
     assert pp.describe() == jp.describe()
 
 
-def _chains(T):
-    from titan_tpu.traversal.dsl import anon
+def _chains(T, anon=None):
+    if anon is None:
+        from titan_tpu.traversal.dsl import anon
     return [
         T().V(1).out().out().dedup().id_(),
         T().V(1, 2).in_("knows").dedup().count(),
@@ -220,11 +222,13 @@ def test_compile_steps_equals_jax(social):
     g = social[0]
     T = g.traversal
     got = 0
-    for t in _chains(T):
+    ported = _chains(lambda: PDsl.GraphTraversalSource(None), PDsl.anon)
+    for t, tp in zip(_chains(T), ported):
         jp = JI.compile_traversal(t)
-        pp = PI.compile_traversal(t)
-        pp2 = PI.compile_steps(PComp._fold_has_into_start(list(t._steps)),
-                               max_depth=PI.DEFAULT_MAX_DEPTH)
+        pp = PI.compile_traversal(tp)
+        pp2 = PI.compile_steps(
+            PDsl.Traversal._fold_has_into_start(list(t._steps)),
+            max_depth=PI.DEFAULT_MAX_DEPTH)
         assert (jp is None) == (pp is None) == (pp2 is None), t._steps
         if pp is not None:
             same_plan(jp, pp)

@@ -5,7 +5,9 @@ epochs and equal change payloads. The other stores (ids, locks, config)
 carry the instance id and timestamps, so they are compared structurally
 only. What the port leaves out raises NotImplementedError naming ROADMAP
 queue 1, item 11; the sqlite store, the WAL and the log processors are
-ported (tests/test_torch_sqlite_wal.py)."""
+ported (tests/test_torch_sqlite_wal.py), and so are ``traversal()`` and
+the graph, transaction and vertex queries (tests/test_torch_query.py,
+tests/test_torch_traversal.py)."""
 
 import numpy as np
 import pytest
@@ -226,17 +228,45 @@ def test_log_tx_option_builds_the_wal():
         g.close()
 
 
+def _knows_out(vertices) -> int:
+    return sum(len(list(v.out("knows"))) for v in vertices)
+
+
+#: each entry's builder answers a one-hop count: the knows edges out of
+#: the vertices it selects
+ENTRIES = {
+    "traversal": lambda g, P, D: g.traversal().V().has("age", P.gt(40))
+    .out("knows").count().next(),
+    "query": lambda g, P, D: _knows_out(
+        g.query().has("age", P.gt(40)).vertices()),
+    "tx.query": lambda g, P, D: _knows_out(
+        g.new_transaction().query().has_label("person").vertices()),
+    "vertex.query": lambda g, P, D: sum(
+        v.query().labels("knows").direction(D.OUT).count()
+        for v in g.new_transaction().vertices()),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_query_and_traversal_entries_answer_as_jax(twins, entry):
+    """``traversal()``, ``query()``, ``tx.query()`` and ``vertex.query()``
+    answer on the port; each one-hop count equals JAX's on twins."""
+    from titan_tpu.core.defs import Direction as JD
+    from titan_tpu.query.predicates import P as JP
+    from titan_tpu_torch.core.defs import Direction as PD
+    from titan_tpu_torch.query.predicates import P as PP
+    got = ENTRIES[entry](twins["port"][0], PP, PD)
+    assert got == ENTRIES[entry](twins["jax"][0], JP, JD)
+    assert got > 0
+
+
 @pytest.mark.parametrize("call", [
-    lambda g: g.traversal(), lambda g: g.query(),
     lambda g: g.index_query("ix", "x"), lambda g: g.index_provider("s"),
     lambda g: g.compute(backend="host"), lambda g: g.compute(backend="tpu"),
-    lambda g: g.new_transaction().query(),
-    lambda g: g.add_vertex().query(),
     lambda g: g.management().build_index("m").add_key("k")
     .build_mixed_index("search"),
     lambda g: g.management().update_index("ci", "reindex")],
-    ids=["traversal", "query", "index_query", "index_provider",
-         "host", "tpu", "tx.query", "vertex.query",
+    ids=["index_query", "index_provider", "host", "tpu",
          "mixed_index", "reindex"])
 def test_refused_methods_name_their_roadmap_item(call):
     g = titan_tpu_torch.open("inmemory")

@@ -100,8 +100,9 @@ class Vertex(Element):
         return self.vertices(Direction.BOTH, *labels)
 
     def query(self):
-        from titan_tpu_torch.errors import not_ported
-        raise not_ported("the vertex-centric query() (query/)")
+        from titan_tpu_torch.query.vertexquery import \
+            VertexCentricQueryBuilder
+        return VertexCentricQueryBuilder(self.tx, self._id)
 
     def degree(self, direction: Direction = Direction.BOTH, *labels) -> int:
         return sum(1 for _ in self.edges(direction, *labels))

@@ -7,9 +7,10 @@ batched per-row store mutations.)
 
 The port's copy of ``titan_tpu/core/graph.py``. What the port leaves out
 raises ``NotImplementedError`` naming ROADMAP queue 1, item 11
-(``errors.not_ported``): ``traversal()``, ``query()`` and
-``index_query()``, mixed-index providers and ``metrics.enabled``.
-``compute()`` runs the port's ``GPUGraphComputer``.
+(``errors.not_ported``): ``index_query()``, mixed-index providers and
+``metrics.enabled``. ``traversal()`` is the port's dsl and ``query()``
+its graph-centric query; ``compute()`` runs the port's
+``GPUGraphComputer``.
 """
 
 from __future__ import annotations
@@ -155,7 +156,8 @@ class StandardGraph:
         return cur
 
     def traversal(self):
-        raise not_ported("traversal() (traversal/dsl.py)")
+        from titan_tpu_torch.traversal.dsl import GraphTraversalSource
+        return GraphTraversalSource(self)
 
     def open_index_txs(self) -> dict:
         return {name: provider.begin_transaction()
@@ -174,7 +176,7 @@ class StandardGraph:
 
     def query(self):
         """Graph-centric query (reference: TitanGraph.query())."""
-        raise not_ported("query() (query/)")
+        return self.tx().query()
 
     def index_query(self, index_name: str, raw: str, limit=None, offset=0):
         """Direct native query against a mixed index (reference:

@@ -768,8 +768,9 @@ class GraphTransaction:
 
     def query(self):
         """``tx.query().has(...)`` (reference: TitanTransaction.query())."""
-        from titan_tpu_torch.errors import not_ported
-        raise not_ported("query() (query/)")
+        from titan_tpu_torch.query.graphquery import GraphQuery
+        self._check_open()
+        return GraphQuery(self)
 
     # ------------------------------------------------------------- lifecycle
 

@@ -82,9 +82,9 @@ class TransactionClosedError(TitanError):
 
 def not_ported(what: str) -> NotImplementedError:
     """The error raised for a part of the OLTP layer that the port leaves
-    out: the gdbm and remote stores, index providers, ``query()``, the
-    traversal DSL, ``metrics.enabled`` and the host computer (ROADMAP
-    queue 1, item 11)."""
+    out: the gdbm and remote stores, mixed-index providers,
+    ``metrics.enabled`` and the host computer (ROADMAP queue 1, item
+    11)."""
     return NotImplementedError(
         f"{what} is not ported (ROADMAP queue 1, item 11: the OLTP "
         "remainder)")

@@ -32,11 +32,12 @@ which needs no sort: the snapshot's dst-sorted arrays are already the
 in-CSR (:func:`reversed_chunked_csr`).
 
 ``Direction`` is the port's ``core/defs.Direction`` and
-``FallbackToInterpreter`` the port's copy of
-``titan_tpu/traversal/olap_compile``'s; a plan made by the JAX package
-does not compare equal to the port's by direction identity, so plans cross between the packages as wire bodies
-or step lists. The device caches (the reversed CSR, the label masks) are
-kept on the snapshot by device under the port's own names.
+``FallbackToInterpreter`` is ``traversal/olap_compile``'s, one class
+caught by the dsl, the compiled path and the lane alike. A plan made by
+the JAX package does not compare equal to the port's by direction
+identity, so plans cross between the packages as wire bodies or step
+lists. The device caches (the reversed CSR, the label masks) are kept on
+the snapshot by device under the port's own names.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from titan_tpu_torch.device import cache_key
 from titan_tpu_torch.models.bfs_hybrid import (chunked_layout,
                                                layout_slot_positions)
 from titan_tpu_torch.obs import devprof
+from titan_tpu_torch.traversal.olap_compile import FallbackToInterpreter
 
 __all__ = ["TraversalPlan", "PPRPlan", "compile_steps",
            "compile_traversal", "plan_from_wire", "traversal_from_plan",
@@ -61,12 +63,6 @@ __all__ = ["TraversalPlan", "PPRPlan", "compile_steps",
 #: default bounded-depth ceiling (LDBC IS3 is a 4-hop; anything deeper
 #: is an analytics job for the heavy queue, not a point query)
 DEFAULT_MAX_DEPTH = 4
-
-
-class FallbackToInterpreter(Exception):
-    """Raised at execution time when the snapshot can't answer the
-    compiled plan faithfully (e.g. label filters but no label codes); the
-    caller reruns the traversal on the OLTP interpreter."""
 
 
 _DIR_NAMES = {"out": Direction.OUT, "in": Direction.IN,
@@ -221,30 +217,14 @@ def compile_steps(steps: list,
                          hop_labels=hop_labels)
 
 
-def _fold_has_into_start(steps: list) -> list:
-    """The dsl's start-step fold (a copy of the JAX package's
-    ``Traversal._fold_has_into_start``): has()/hasLabel()/hasId() right
-    after V() join the start step, so ``V(ids)``-rooted chains normalize
-    as the execution path does."""
-    if not steps or steps[0][0] != "V":
-        return steps
-    folded = [steps[0]]
-    i = 1
-    conditions = []
-    while i < len(steps) and steps[i][0] in ("has", "hasLabel", "hasId"):
-        conditions.append(steps[i])
-        i += 1
-    if conditions:
-        folded.append(("Vfiltered", (conditions,)))
-    folded.extend(steps[i:])
-    return folded
-
-
 def compile_traversal(t, max_depth: int = DEFAULT_MAX_DEPTH
                       ) -> Optional[TraversalPlan]:
-    """Compile a dsl traversal (duck-typed: its ``_steps`` list), folding
-    has-into-start first as the execution path does."""
-    return compile_steps(_fold_has_into_start(list(t._steps)), max_depth)
+    """Compile a dsl ``Traversal`` (folds has-into-start first, exactly
+    like the execution path, so ``V(ids)``-rooted chains normalize the
+    same way)."""
+    from titan_tpu_torch.traversal.dsl import Traversal
+    steps = Traversal._fold_has_into_start(list(t._steps))
+    return compile_steps(steps, max_depth)
 
 
 def plan_from_wire(body: dict):

@@ -241,7 +241,41 @@ Phases, each of which raises on failure:
    the chain shapes of tests/test_olap_compile.py on the graph of the
    gods and a seeded ``PROPERTY_VERTICES``-vertex labelled property
    graph, compiled on CUDA and equal to the port's interpreter, and
-   K_50's 6-hop count equal to the interpreter's and to 50 * 49^6.
+   K_50's 6-hop count equal to the interpreter's and to 50 * 49^6;
+15. the front door (``server.py``) on phase 12's refreshed s22 store
+   snapshot and graph, inside phase 12's hook after 14a: a
+   ``GraphServer`` over the store graph with
+   ``JobScheduler(snapshot=snap, device="cuda")`` on port 0, every
+   request through a socket (``utils/httpnode``): 16 BFS jobs (bench.py's
+   source rule) POSTed to the paused scheduler run as one K = 16 batch,
+   each polled over ``GET /jobs/<id>`` with reached, levels and a target
+   equal to ``frontier_bfs_batched`` and its row bit-equal; a ``dense``
+   PageRank job (20 supersteps, through ``submit_job``, the seam POST
+   /jobs calls: its program is an object) bit-equal to
+   ``GPUGraphComputer.run``; two bursts of 16 concurrent ``POST
+   /traverse`` 2-hop ``both()`` counts from 16 threads, each one batch
+   of 16 equal to ``expand_once``; a gremlin chain through the lane
+   (compiled); a ``POST /traversal`` script interpreted on the store
+   graph, ``out().out().dedup().count()`` from a seeded low-degree
+   vertex, equal to the count over the loaded edges (the bulk loader
+   writes one OUT entry an edge, as the reference does);
+   the observation endpoints answer JSON, ``/metrics`` parses as
+   exposition 0.0.4 with ``serving_jobs_completed`` and the three
+   kernels' ``device.exec`` children; a bad body 400, an unknown job
+   404. Printed: each request kind's walls, the K = 16 batch's wall
+   over HTTP beside phase 10's served and direct walls. Its launches are
+   ``launches_by_path["server"]``; all three must be above zero;
+16. the replica fleet at bench.py's ``fleet_stage`` shape (after phase
+   13): one storage node (the port's ``KCVSServer``, mounted with
+   ``storage.backend: remote``; bench.py's ``remote-cluster`` ring is not
+   ported) holding n = 192 and 900 edges of seed 42, two replicas from
+   ``olap/fleet/replica.build`` on the card behind a ``FleetRouter``: 4
+   BFS, 4 SSSP and 4 WCC jobs, each equal to the direct call on a
+   snapshot of the same graph, the per-replica routed counts, the
+   federated ``/metrics?federate=1`` and ``/fleet``; then a victim
+   replica (never started) stopped after dispatch, its job finished on
+   the survivor on attempt 2 with one redispatch, equal to the direct
+   BFS. Its launches are ``launches_by_path["fleet"]`` where above zero.
 
 The line before the last is the ``{"kernels": [...]}`` record of the
 three kernels (each record's ``launches`` sums its paths, listed under
@@ -4606,6 +4640,501 @@ def phase_traversal_small(OC, card) -> None:
             g.close()
 
 
+# ---- phase 15: the front door at s22, over HTTP
+
+#: the HTTP lane burst's fuse window: the batch closes when its 16th
+#: request arrives, so a wide window costs nothing once all are in
+HTTP_WINDOW_S = 0.5
+#: the interpreter's start: a seeded vertex of at most this degree whose
+#: out-neighbours have at most INTERP_MAX_NBR_DEG each
+INTERP_MAX_DEG = 8
+INTERP_MAX_NBR_DEG = 64
+
+_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[a-zA-Z0-9_]+="(?:[^"\\]|\\.)*"'
+    r'(?:,[a-zA-Z0-9_]+="(?:[^"\\]|\\.)*")*\})? '
+    r"([+-]?\d+\.?\d*(?:[eE][+-]?\d+)?)$")
+
+
+def parse_exposition(text: str) -> dict:
+    """Prometheus text 0.0.4 as ``{sample with its labels: value}``;
+    fails on any line outside the grammar."""
+    out = {}
+    check(text.endswith("\n"), "the exposition does not end in a newline")
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            check(len(ln.split()) == 4 and ln.split()[3] in (
+                "counter", "gauge", "summary"), f"bad TYPE line {ln!r}")
+        elif ln.startswith("# HELP ") or not ln:
+            continue
+        else:
+            m = _SAMPLE.match(ln)
+            check(m is not None, f"not an exposition 0.0.4 sample: {ln!r}")
+            out[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def http_final(url: str, jid: str, wait_s: float = 300.0) -> dict:
+    """``GET /jobs/<id>`` until the job is terminal."""
+    from titan_tpu_torch.utils.httpnode import text_get
+    t_end = time.time() + wait_s
+    while True:
+        w = json.loads(text_get(url, f"/jobs/{jid}"))
+        if w["status"] not in ("queued", "running", "retrying"):
+            return w
+        check(time.time() < t_end, f"job {jid} still {w['status']} after "
+              f"{wait_s} s")
+        time.sleep(0.002)
+
+
+def interp_start(snap, edges) -> tuple[int, int]:
+    """A seeded low-degree start for the interpreter and its
+    ``out().out().dedup().count()``. The bulk loader writes one OUT entry
+    an edge, as the reference does, so the interpreter sees the loaded
+    edges' directions, which the symmetric snapshot has lost: the count
+    comes from the generated ``edges`` (src, dst). A start qualifies when
+    its row and its out-neighbours' rows are the load's alone: each one's
+    neighbours in the snapshot equal its out- and in-edges among
+    ``edges`` (the freshness commit touched none of them)."""
+    src, dst = edges
+    deg = snap.out_degree
+    ip, ssrc = snap.indptr_in, snap.src
+    rng = np.random.default_rng(SEED)
+    cand = np.flatnonzero((deg > 0) & (deg <= INTERP_MAX_DEG))
+    for v in rng.permutation(cand)[:64].tolist():
+        outs = dst[src == v]
+        if not outs.size or deg[outs].max() > INTERP_MAX_NBR_DEG:
+            continue
+        if all(np.array_equal(np.sort(ssrc[ip[w]:ip[w + 1]]), np.sort(
+                np.concatenate([dst[src == w], src[dst == w]])))
+               for w in np.unique(np.append(outs, v)).tolist()):
+            return int(v), int(np.unique(dst[np.isin(src, outs)]).size)
+    raise AssertionError("no low-degree start whose 2-hop rows the load "
+                         "alone wrote")
+
+
+def http_status(url: str, path: str, data: bytes | None = None) -> int:
+    """The HTTP status of one request (a body POSTs it)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url + path, data=data, method="POST"
+                                 if data is not None else "GET")
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def phase_server_s22(F, P, g, snap, card, runs, phase10) -> None:
+    """Phase 15 on phase 12's refreshed s22 store snapshot and its graph:
+    ``GraphServer(graph, scheduler=JobScheduler(snapshot=snap,
+    device="cuda"))`` on port 0, device profiling on, every request
+    through a socket (``utils/httpnode``). ``runs`` counts the served
+    launches; the direct reference calls run outside it; ``phase10``
+    holds phase 10's served and direct walls, printed beside this
+    phase's."""
+    from titan_tpu_torch import native
+    from titan_tpu_torch.models import pagerank as MP
+    from titan_tpu_torch.olap.engine import GPUGraphComputer
+    from titan_tpu_torch.olap.serving import JobScheduler
+    from titan_tpu_torch.server import GraphServer
+    from titan_tpu_torch.utils.httpnode import json_call, text_get
+    from titan_tpu_torch.utils.metrics import MetricManager, nearest_rank
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    n, vids = snap.n, snap.vertex_ids
+    srcs = sample_sources(snap.out_degree, BATCH_K)
+    probe = int(vids[srcs[-1]])
+    sched = JobScheduler(snapshot=snap, device="cuda", autostart=False,
+                         max_batch=BATCH_K, metrics=MetricManager(),
+                         interactive_window_s=HTTP_WINDOW_S,
+                         interactive_max_fuse=BATCH_K)
+    server = GraphServer(g, port=0, scheduler=sched).start()
+    url = f"http://{server.host}:{server.port}"
+    walls: dict = {}
+
+    def timed(kind, fn):
+        t = time.time()
+        out = fn()
+        walls.setdefault(kind, []).append(round((time.time() - t) * 1e3, 3))
+        return out
+
+    outdeg = np.maximum(snap.out_degree, 1).astype(np.float32)
+    inv = np.where(snap.out_degree > 0, 1.0 / outdeg,
+                   0.0).astype(np.float32)      # models/pagerank.run's
+    lane_q = [{"start": [int(vids[x])], "dir": "both", "hops": 2,
+               "terminal": "count"} for x in srcs]
+    # the loaded edges, as phase 12 generated them
+    edges = native.rmat_gen((1 << STORE_SCALE) * EDGE_FACTOR, STORE_SCALE,
+                            seed=SEED)
+    v0, want_i = interp_start(snap, edges)
+    del edges
+    setup_s = time.time() - t_phase
+    script = f"g.V({int(vids[v0])}).out().out().dedup().count()"
+
+    def burst():
+        # no collection inside a burst: a full one over the s22 store's
+        # heap takes seconds, longer than the fuse window
+        gc.disable()
+        try:
+            return fire()
+        finally:
+            gc.enable()
+
+    def fire():
+        out = [None] * BATCH_K
+        gate = threading.Barrier(BATCH_K)
+
+        def go(i):
+            gate.wait()
+            t = time.time()
+            try:
+                out[i] = (json_call(url, "/traverse", lane_q[i],
+                                    timeout=300), (time.time() - t) * 1e3)
+            except Exception as e:       # re-raised below, in order
+                out[i] = (e, None)
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(BATCH_K)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+            check(not t.is_alive(), "a /traverse request did not return")
+        for res, _ in out:
+            if isinstance(res, Exception):
+                raise res
+        return out
+
+    def main_path():
+        # ---- the K = 16 BFS cohort: 16 POSTs to a paused scheduler
+        t0 = time.time()
+        subs = [timed("POST /jobs", lambda s=s: json_call(url, "/jobs", {
+            "kind": "bfs", "source": int(vids[s]), "targets": [probe]}))
+            for s in srcs]
+        sched.start()
+        finals = [timed("GET /jobs/<id> to done",
+                        lambda w=w: http_final(url, w["job"]))
+                  for w in subs]
+        cohort_s = time.time() - t0
+        occ = sched._metrics.histogram("serving.batch.occupancy").to_dict()
+        # ---- one dense PageRank job, 20 supersteps: its program is an
+        # object, which JSON cannot carry, so it enters through
+        # submit_job, the seam POST /jobs itself calls, and is polled
+        # over HTTP
+        t1 = time.time()
+        dj = server.submit_job({"kind": "dense", "params": {
+            "program": MP.PageRank(0.85, 20, 0.0), "n": n,
+            "inv_outdeg": inv}})
+        dense = timed("GET /jobs/<id> to done",
+                      lambda: http_final(url, dj.id))
+        dense_s = time.time() - t1
+        # ---- a burst of 16 2-hop both() counts on the fresh lane
+        first = burst()
+        warm = burst()
+        glane = timed("POST /traverse gremlin", lambda: json_call(
+            url, "/traverse", {"gremlin": f"g.V({probe}).both().both()"
+                                          f".dedup().count()"}))
+        interp = timed("POST /traversal", lambda: json_call(
+            url, "/traversal", {"gremlin": script}))
+        return (subs, finals, cohort_s, occ, dj, dense, dense_s, first,
+                warm, glane, interp)
+
+    try:
+        t_path = time.time()
+        (subs, finals, cohort_s, occ, dj, dense, dense_s, first, warm,
+         glane, interp) = runs.run(main_path)
+        path_s = time.time() - t_path
+        for kind, out in (("POST /traverse burst", first),
+                          ("POST /traverse burst, warm", warm)):
+            walls[kind] = [round(ms, 3) for _, ms in out]
+        # ---- the cohort against the direct batched BFS
+        check(all(w["status"] == "queued" for w in subs),
+              f"submits {[w['status'] for w in subs]}")
+        check((occ["count"], occ["max"]) == (1, float(BATCH_K)), f"occupancy "
+              f"{occ}: the 16 HTTP submits are not one batch")
+        (dist, levels, _), direct_s = wall_s(lambda: P.frontier_bfs_batched(
+            snap, srcs, device=dev))
+        pd = snap.dense_of(probe)
+        for i, (s, w) in enumerate(zip(srcs, finals)):
+            r = w["result"]
+            want_t = int(dist[i][pd])
+            check(w["status"] == "done" and w["batch_k"] == BATCH_K
+                  and r["reached"] == int((dist[i] < (1 << 30)).sum())
+                  and r["levels"] == int(levels[i])
+                  and r["targets"] == {str(probe): want_t
+                                       if want_t < (1 << 30) else None},
+                  f"BFS from {s} over HTTP: {w}")
+            check(np.array_equal(sched.get(w["job"]).result["dist"],
+                                 dist[i]), f"served BFS row from {s} "
+                  f"differs from frontier_bfs_batched")
+        # ---- the dense job against GPUGraphComputer.run
+        ref = MP.run(GPUGraphComputer(snapshot=snap, device=dev), 0.85, 20,
+                     0.0)
+        check(dense["status"] == "done"
+              and dense["result"]["iterations"] == 20
+              and np.array_equal(dj.result["rank"], ref["rank"]),
+              f"dense PageRank over HTTP is not bit-equal to "
+              f"GPUGraphComputer.run: {dense}")
+        # ---- the lane
+        csr = P.build_chunked_csr(snap, dev)
+        want = {x: int(hop_sets(csr, x, 2)[1].sum()) for x in srcs}
+        for what, out in (("first", first), ("warm", warm)):
+            res = [r for r, _ in out]
+            check({(r["fused_k"], r["batch"]) for r in res} == {
+                (BATCH_K, res[0]["batch"])} and not any(
+                    r["fallback"] for r in res), f"the {what} burst is not "
+                  f"one batch of {BATCH_K}: "
+                  f"{[(r['batch'], r['fused_k']) for r in res]}")
+            for x, r in zip(srcs, res):
+                check(r["result"] == want[x], f"/traverse count of {x}: "
+                      f"{r['result']}, expand_once {want[x]}")
+        check(glane["fallback"] is False
+              and glane["result"] == want[srcs[-1]], f"gremlin through "
+              f"the lane: {glane}, expand_once {want[srcs[-1]]}")
+        check(interp["result"] == [want_i], f"the interpreter's "
+              f"{script}: {interp['result']}, the loaded edges' {want_i}")
+        # ---- the observation endpoints
+        for path in ("/healthz", "/jobs", "/tenants", "/live", "/slo",
+                     "/controller", f"/trace?job={subs[0]['job']}",
+                     "/status", "/schema"):
+            body = timed("GET " + path.split("?")[0],
+                         lambda p=path: json.loads(text_get(url, p)))
+            check(isinstance(body, dict), f"{path}: {body}")
+            if path == "/healthz":
+                check(body["ready"] is True, f"/healthz {body}")
+            if path == "/live":
+                check(body == {"enabled": False}, f"/live {body}")
+        text = timed("GET /metrics", lambda: text_get(url, "/metrics"))
+        samples = parse_exposition(text)
+        ran = len(finals) + 1
+        check(samples.get("serving_jobs_completed") == ran,
+              f"serving_jobs_completed "
+              f"{samples.get('serving_jobs_completed')}, jobs run {ran}")
+        kern = {k: (samples.get(f'device_exec_calls{{kernel="{k}"}}'),
+                    samples.get(f'device_exec_ms_count{{kernel="{k}"}}'))
+                for k in ("frontier_round", "batched_exhaust", "seg_scan")}
+        check(all(c and t for c, t in kern.values()), f"/metrics "
+              f"device.exec children (calls, timed) {kern}")
+        bad = http_status(url, "/jobs", b"{not json")
+        unknown = http_status(url, "/jobs/job-nope")
+        check(bad == 400 and unknown == 404, f"a bad body got {bad}, an "
+              f"unknown job {unknown}")
+    finally:
+        server.stop()           # closes the scheduler
+    lat = {k: {"n": len(v), "p50_ms": nearest_rank(v, 0.5),
+               "max_ms": max(v)} for k, v in walls.items()}
+    say(f"phase 15: GraphServer on {card} at s{STORE_SCALE}: {BATCH_K} BFS "
+        f"jobs POSTed to a paused scheduler ran as one batch of {BATCH_K}, "
+        f"every row bit-equal to frontier_bfs_batched and reached, levels "
+        f"and the target equal over the wire; the K={BATCH_K} batch "
+        f"{cohort_s:.4f} s from the first POST to the last GET done "
+        f"(frontier_bfs_batched called directly {direct_s:.4f} s; phase "
+        f"10 on {card}: served {phase10['served_s']:.4f} s, direct "
+        f"{phase10['direct_s']:.4f} s); dense PageRank (20 supersteps) "
+        f"{dense_s:.4f} s submit to GET done, bit-equal to "
+        f"GPUGraphComputer.run; two bursts of {BATCH_K} /traverse 2-hop "
+        f"both() counts from {BATCH_K} threads, each one batch of "
+        f"{BATCH_K}, every count equal to expand_once; a gremlin chain "
+        f"through the lane (compiled) and the interpreter's {script} "
+        f"({want_i}) equal to the loaded edges'; /metrics parses as 0.0.4 "
+        f"with serving_jobs_completed {ran} and device.exec counts {kern}; "
+        f"a bad body 400, an unknown job 404; {time.time() - t_phase:.1f} s "
+        f"(set-up {setup_s:.1f} s: the loaded edges and the interpreter's "
+        f"start; the served path {path_s:.1f} s)")
+    say("phase 15: request walls by kind (ms) " + json.dumps(lat))
+
+
+# ---- phase 16: the replica fleet at bench.py's fleet_stage shape
+
+#: bench.py's fleet_stage graph (bench.py:1377-1506)
+FLEET_N, FLEET_M, FLEET_SEED = 192, 900, 42
+FLEET_WAIT_S = 120.0
+
+
+def fleet_drive(router, jids, wait_s: float = FLEET_WAIT_S) -> list:
+    """Pump the router until every job is terminal; their wire bodies."""
+    from titan_tpu_torch.utils.httpnode import text_get
+    t_end = time.time() + wait_s
+    while True:
+        router.pump()
+        ws = [json.loads(text_get(router.url, f"/jobs/{j}")) for j in jids]
+        if all(w["state"] in ("done", "failed", "timeout", "cancelled",
+                              "expired") for w in ws):
+            return ws
+        check(time.time() < t_end, f"the fleet stream stalled: "
+              f"{[w['state'] for w in ws]}")
+        time.sleep(0.01)
+
+
+def phase_fleet(card, runs) -> None:
+    """Phase 16: bench.py's fleet_stage on the card. One storage node (the
+    port's ``KCVSServer`` over an in-memory store, mounted with
+    ``storage.backend: remote``) holds the n = 192, 900-edge graph of
+    seed 42; two replicas from ``olap/fleet/replica.build`` (GraphServer
+    + JobScheduler on CUDA each) behind a ``FleetRouter`` take a stream
+    of 4 BFS, 4 SSSP and 4 WCC jobs, each result equal to the direct call
+    on a snapshot of the same graph; then one failover. ``runs`` counts
+    the served launches."""
+    import shutil
+
+    import titan_tpu_torch
+    from titan_tpu_torch.models.bfs_hybrid import frontier_bfs_batched
+    from titan_tpu_torch.models.frontier import frontier_sssp, frontier_wcc
+    from titan_tpu_torch.olap import snapshot as SN
+    from titan_tpu_torch.olap.fleet import FleetRouter
+    from titan_tpu_torch.olap.fleet.replica import build
+    from titan_tpu_torch.storage.inmemory import InMemoryStoreManager
+    from titan_tpu_torch.storage.remote import KCVSServer
+    from titan_tpu_torch.utils.httpnode import json_call, text_get
+    from titan_tpu_torch.utils.metrics import MetricManager
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    ck = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      ".bench_cache", "fleet_checkpoints")
+    shutil.rmtree(ck, ignore_errors=True)
+    # bench.py mounts remote-cluster over this one node; the sharded ring
+    # (storage/cluster.py) is not ported (ROADMAP queue 1, item 11), so
+    # the one-node remote store stands in for it
+    storage = KCVSServer(InMemoryStoreManager()).start()
+    cfg = {"storage.backend": "remote", "storage.hostname": "127.0.0.1",
+           "storage.port": storage.port}
+    reps, routers = [], []
+    try:
+        loader = titan_tpu_torch.open(dict(cfg))
+        try:
+            tx = loader.new_transaction()
+            vs = [tx.add_vertex("node", name=f"v{i}")
+                  for i in range(FLEET_N)]
+            rng = np.random.default_rng(FLEET_SEED)
+            for _ in range(FLEET_M):
+                a, b = rng.integers(0, FLEET_N, 2)
+                tx.add_edge(vs[int(a)], "link", vs[int(b)])
+            tx.commit()
+            ids = [v.id for v in vs]
+            snap = SN.build(loader, directed=False)
+        finally:
+            loader.close()
+        load_s = time.time() - t_phase
+        for i in range(2):
+            reps.append(build({"graph": cfg, "checkpoint_dir": ck}))
+            reps[-1][2].start()
+        mm = MetricManager()
+        router = FleetRouter(metrics=mm, autotune="shadow", autopump=False)
+        routers.append(router)
+        insts = {}
+        for i, (_, sch, srv) in enumerate(reps):
+            check(sch.device.type == "cuda", f"replica {i} on {sch.device}")
+            inst = router.add_replica(f"http://{srv.host}:{srv.port}",
+                                      instance=f"replica-{i}")
+            insts[inst] = sch
+        router.start()
+        bfs_k, sssp_k = (0, 3, 7, 11), (1, 5, 9, 13)
+        stream = ([{"kind": "bfs", "source": ids[k]} for k in bfs_k]
+                  + [{"kind": "sssp", "source": ids[k]} for k in sssp_k]
+                  + [{"kind": "wcc"} for _ in range(4)])
+
+        def run_stream():
+            t0 = time.time()
+            jids = [json_call(router.url, "/jobs", b)["job"] for b in stream]
+            return fleet_drive(router, jids), time.time() - t0
+        finals, stream_s = runs.run(run_stream)
+        check(all(w["state"] == "done" for w in finals), "fleet stream: "
+              + str([(w["state"], w["remote"].get("error")) for w in finals]))
+
+        def served(w):
+            return insts[w["replica"]].get(w["remote_job"]).result
+        dense = [snap.dense_of(ids[k]) for k in bfs_k]
+        dist, levels, _ = frontier_bfs_batched(snap, dense, device=dev)
+        for i, w in enumerate(finals[:4]):
+            check(np.array_equal(served(w)["dist"], dist[i])
+                  and w["remote"]["result"]["levels"] == int(levels[i]),
+                  f"fleet BFS from {ids[bfs_k[i]]} differs from "
+                  f"frontier_bfs_batched")
+        for k, w in zip(sssp_k, finals[4:8]):
+            d, r = frontier_sssp(snap, snap.dense_of(ids[k]), device=dev)
+            got = served(w)
+            check(np.array_equal(got["dist"].view(np.int32),
+                                 d.view(np.int32)) and got["rounds"] == r,
+                  f"fleet SSSP from {ids[k]} differs from frontier_sssp")
+        lab, wr = frontier_wcc(snap, device=dev)
+        for w in finals[8:]:
+            got = served(w)
+            check(np.array_equal(got["labels"], lab)
+                  and got["rounds"] == wr, "fleet WCC differs from "
+                  "frontier_wcc")
+        routed = {inst: int(mm.counter_value(
+            "serving.fleet.routed", labels={"instance": inst}))
+            for inst in insts}
+        check(sum(routed.values()) == len(stream)
+              and mm.counter_value("serving.jobs.submitted") == len(stream),
+              f"routed {routed}, submitted "
+              f"{mm.counter_value('serving.jobs.submitted')}")
+        fed = text_get(router.url, "/metrics?federate=1")
+        samples = parse_exposition(fed)
+        fl = json.loads(text_get(router.url, "/fleet"))
+        check(any('instance="replica-0"' in k for k in samples)
+              and any('instance="replica-1"' in k for k in samples)
+              and fl["up"] == 2, f"federation: /fleet up {fl['up']}")
+        router.stop()
+        for g_, sch, srv in reps:
+            srv.stop()              # closes the scheduler
+            g_.close()
+        reps.clear()
+
+        # ---- failover: the victim's scheduler never starts
+        for name, kw in (("a-victim", {"autostart": False}),
+                         ("b-survivor", {})):
+            reps.append(build({"graph": cfg, "checkpoint_dir": ck,
+                               "scheduler": kw}))
+            reps[-1][2].start()
+        m2 = MetricManager()
+        router2 = FleetRouter(metrics=m2, autotune="off", autopump=False)
+        routers.append(router2)
+        for name, (_, _, srv) in zip(("a-victim", "b-survivor"), reps):
+            router2.add_replica(f"http://{srv.host}:{srv.port}",
+                                instance=name)
+        router2.start()
+
+        def failover():
+            out = json_call(router2.url, "/jobs", {
+                "kind": "bfs", "source": ids[0], "checkpoint_every": 1,
+                "targets": [ids[-1]]})
+            check(out["replica"] == "a-victim", f"first pick {out}")
+            router2.pump()
+            reps[0][2].stop()
+            return fleet_drive(router2, [out["job"]])[0]
+        w = runs.run(failover)
+        got = reps[1][1].get(w["remote_job"]).result
+        lat = m2.histogram_stats("serving.fleet.redispatch_latency_ms")
+        check(w["state"] == "done" and w["replica"] == "b-survivor"
+              and w["attempts"] == 2
+              and m2.counter_value("serving.fleet.redispatches") == 1
+              and m2.counter_value("serving.jobs.submitted") == 1
+              and np.array_equal(got["dist"], dist[0]),
+              f"failover: {w}")
+        say(f"phase 16: fleet on {card} (bench.py's fleet_stage shape: "
+            f"n={FLEET_N}, {FLEET_M} edges, seed {FLEET_SEED}, one remote "
+            f"storage node, loaded and snapshotted in {load_s:.1f} s): "
+            f"4 BFS, 4 SSSP and 4 WCC through the router in "
+            f"{stream_s:.4f} s, each equal to the direct call on the "
+            f"card; routed per replica {routed}; /metrics?federate=1 "
+            f"carries both instances and /fleet shows {fl['up']} up; "
+            f"failover: the job finished on b-survivor on attempt 2, one "
+            f"redispatch, equal to the direct BFS, redispatch latency "
+            f"{lat['max']:.3f} ms; {time.time() - t_phase:.1f} s")
+    finally:
+        for r in routers:
+            r.stop()
+        for g_, sch, srv in reps:
+            srv.stop()
+            g_.close()
+        storage.stop()
+        shutil.rmtree(ck, ignore_errors=True)
+
+
 def sssp_round_split(trace) -> list[dict]:
     """Per round from a drained ``_trace_rounds``: the plan's seconds and
     the pushes' (from the end of this plan to the start of the next,
@@ -4731,7 +5260,8 @@ def main() -> int:
     seg_rec["launches"] = sum(seg_rec["launches_by_path"].values())
     seg_rec["rows"] = batched["rows"]
     peel22 = phase_frontier_s22(F, P, G, FR, PR, ref, card, superstep_s)
-    served = phase_serving_s22(F, P, FR, S, ref, card)["launches"]
+    phase10 = phase_serving_s22(F, P, FR, S, ref, card)
+    served = phase10["launches"]
     seg_rec["launches_by_path"]["serving"] = served["seg_scan"]
     live_runs, lane_runs = ServedLaunches(F, S), ServedLaunches(F, S)
     live = phase_live_s22(P, SN, OV, EM, ref, card, live_runs)
@@ -4742,11 +5272,16 @@ def main() -> int:
               and runs.total["batched_exhaust"] > 0, f"a kernel was never "
               f"launched on the {path} path: {runs.total}")
         say(f"phase 11: {path} launches {runs.total}")
-    store_runs = ServedLaunches(F, S)
-    _, store_g, fresh = phase_store_ingest(
-        P, G, ref, card, store_runs,
-        traverse=lambda g, snap: phase_traversal_s22(F, S, OC, g, snap,
-                                                     card))
+    store_runs, server_runs = ServedLaunches(F, S), ServedLaunches(F, S)
+
+    def on_store(g, snap):
+        phase_traversal_s22(F, S, OC, g, snap, card)
+        phase_server_s22(F, P, g, snap, card, server_runs, phase10)
+    _, store_g, fresh = phase_store_ingest(P, G, ref, card, store_runs,
+                                           traverse=on_store)
+    check(all(server_runs.total.values()), f"a kernel was never launched "
+          f"on the server path: {server_runs.total}")
+    say(f"phase 15: server launches {server_runs.total}")
     check(store_runs.total["frontier_round"] > 0
           and store_runs.total["seg_scan"] > 0, f"a kernel was never "
           f"launched on the store path: {store_runs.total}")
@@ -4765,6 +5300,9 @@ def main() -> int:
           f"a kernel was never launched on the plane path: "
           f"{plane_runs.total}")
     say(f"phase 13: plane launches {plane_runs.total}")
+    fleet_runs = ServedLaunches(F, S)
+    phase_fleet(card, fleet_runs)
+    say(f"phase 16: fleet launches {fleet_runs.total}")
     gc.collect()          # the store and its snapshots, before s26
     del ref               # and with it the s22 graph cached on the card
     torch.cuda.empty_cache()
@@ -4785,17 +5323,20 @@ def main() -> int:
                                    lane_runs.total["frontier_round"]}
     rec["launches_by_path"]["store"] = store_runs.total["frontier_round"]
     rec["launches_by_path"]["plane"] = plane_runs.total["frontier_round"]
-    rec["launches"] = sum(rec["launches_by_path"].values())
     seg_rec["launches_by_path"]["store"] = store_runs.total["seg_scan"]
     seg_rec["launches_by_path"]["plane"] = plane_runs.total["seg_scan"]
-    seg_rec["launches"] = sum(seg_rec["launches_by_path"].values())
     x_rec["launches_by_path"].update(
         serving=served["batched_exhaust"],
         live=live_runs.total["batched_exhaust"],
         interactive=lane_runs.total["batched_exhaust"],
         store=store_runs.total["batched_exhaust"],
         plane=plane_runs.total["batched_exhaust"])
-    x_rec["launches"] = sum(x_rec["launches_by_path"].values())
+    for r, key in ((rec, "frontier_round"), (seg_rec, "seg_scan"),
+                   (x_rec, "batched_exhaust")):
+        r["launches_by_path"]["server"] = server_runs.total[key]
+        if fleet_runs.total[key]:
+            r["launches_by_path"]["fleet"] = fleet_runs.total[key]
+        r["launches"] = sum(r["launches_by_path"].values())
     print(json.dumps({"kernels": [rec, seg_rec, x_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -257,3 +257,61 @@ def test_device_none_means_cuda(monkeypatch):
 def test_next_pow2_matches_the_jax_package_rule():
     assert [next_pow2(x) for x in (0, 1, 2, 3, 4, 5, 1023, 1024)] == \
         [2, 2, 2, 4, 4, 8, 1024, 1024]
+
+
+#: the front door: the HTTP server, its wire plumbing, the exposition and
+#: federation, the remote store and the replica fleet
+FRONT_DOOR = [("server",), ("utils", "httpnode"), ("obs", "promexport"),
+              ("obs", "federate"), ("storage", "remote")] + [
+    ("olap", "fleet", m) for m in ("__init__", "membership", "router",
+                                   "replica")]
+
+
+def test_the_front_door_is_scanned():
+    for parts in FRONT_DOOR:
+        path = ROOT.joinpath("titan_tpu_torch", *parts[:-1],
+                             parts[-1] + ".py")
+        assert path in FILES, path
+
+
+def test_serving_over_http_loads_no_jax():
+    """A job and a scrape over HTTP, a graph over a storage node and a
+    router over one replica, in a fresh interpreter: nothing of jax or
+    titan_tpu is loaded (the handlers import inside functions)."""
+    code = (
+        "import sys, json, time\n"
+        "import titan_tpu_torch\n"
+        "from titan_tpu_torch.server import GraphServer\n"
+        "from titan_tpu_torch.storage.inmemory import "
+        "InMemoryStoreManager\n"
+        "from titan_tpu_torch.storage.remote import KCVSServer\n"
+        "from titan_tpu_torch.olap.fleet import FleetRouter\n"
+        "from titan_tpu_torch.utils.httpnode import json_call, text_get\n"
+        "node = KCVSServer(InMemoryStoreManager()).start()\n"
+        "g = titan_tpu_torch.open({'storage.backend': 'remote',\n"
+        "    'storage.hostname': '127.0.0.1', 'storage.port': node.port,\n"
+        "    'storage.lock.wait-time': 5, 'ids.authority.wait-time': 5})\n"
+        "tx = g.new_transaction()\n"
+        "a, b = tx.add_vertex('node'), tx.add_vertex('node')\n"
+        "a.add_edge('link', b)\n"
+        "tx.commit()\n"
+        "srv = GraphServer(g, port=0, device='cpu').start()\n"
+        "url = f'http://{srv.host}:{srv.port}'\n"
+        "r = FleetRouter([url], autotune='off', autopump=False).start()\n"
+        "j = json_call(r.url, '/jobs', {'kind': 'bfs', 'source': a.id})\n"
+        "for _ in range(500):\n"
+        "    r.pump()\n"
+        "    w = json.loads(text_get(r.url, '/jobs/' + j['job']))\n"
+        "    if w['state'] == 'done': break\n"
+        "    time.sleep(0.02)\n"
+        "assert w['remote']['result']['reached'] == 2, w\n"
+        "assert 'serving_jobs_completed' in text_get(url, '/metrics')\n"
+        "assert 'instance=' in text_get(r.url, '/metrics?federate=1')\n"
+        "r.stop(); srv.stop(); g.close(); node.stop()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'titan_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

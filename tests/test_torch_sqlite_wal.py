@@ -177,7 +177,8 @@ def test_two_handles_share_one_directory(tmp_path):
 
 
 def test_the_other_stores_still_refuse(tmp_path):
-    for backend in ("gdbm", "remote", "remote-cluster"):
+    # "remote" mounts a storage node now (tests/test_torch_remote.py)
+    for backend in ("gdbm", "remote-cluster"):
         with pytest.raises(NotImplementedError, match="item 11"):
             titan_tpu_torch.open({"storage.backend": backend,
                                   "storage.directory": str(tmp_path)})

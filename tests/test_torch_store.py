@@ -184,8 +184,9 @@ def test_listeners_are_held_weakly():
         g.close()
 
 
-@pytest.mark.parametrize("backend", ["gdbm", "remote", "remote-cluster"])
+@pytest.mark.parametrize("backend", ["gdbm", "remote-cluster"])
 def test_other_stores_name_their_roadmap_item(backend):
+    """``remote`` mounts a storage node (tests/test_torch_remote.py)."""
     with pytest.raises(NotImplementedError, match="item 11"):
         titan_tpu_torch.open({"storage.backend": backend,
                               "storage.directory": "unused"})

@@ -39,11 +39,12 @@ def gods(which: str):
     return g
 
 
-def people(which: str, seed: int = 11, n: int = 40, m: int = 200):
+def people(which: str, seed: int = 11, n: int = 40, m: int = 200,
+           config=None):
     """tests/test_olap_compile.py's ``gp`` shape on a twin graph: n
     persons named p<i> with ages 20-69, m random knows/likes edges (no
     self loops), one commit."""
-    g = open_twin(which)
+    g = open_twin(which, config=config)
     rng = random.Random(seed)
     tx = g.new_transaction()
     vs = [tx.add_vertex("person", name=f"p{i}", age=20 + (i * 7) % 50)

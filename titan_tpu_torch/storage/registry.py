@@ -4,9 +4,9 @@
 Backend.getStorageManager Backend.java:406-414 — shorthand → implementation
 map with reflective fallback to an import path.)
 
-The port's copy registers ``inmemory`` and ``sqlite``; ``gdbm``,
-``remote`` and ``remote-cluster`` raise ``NotImplementedError`` naming
-ROADMAP queue 1, item 11.
+The port's copy registers ``inmemory``, ``sqlite`` and ``remote`` (one
+storage node, ``storage/remote.py``); ``gdbm`` and ``remote-cluster``
+raise ``NotImplementedError`` naming ROADMAP queue 1, item 11.
 """
 
 from __future__ import annotations
@@ -54,6 +54,16 @@ def _sqlite(directory=None, read_only=False, **kw):
     return SqliteStoreManager(directory, read_only)
 
 
+def _remote(hostname=None, port=None, timeout=None, **kw):
+    from titan_tpu_torch.storage.remote import RemoteStoreManager
+    # storage.hostname is a host LIST (reference parity); this adapter
+    # targets one storage node
+    if isinstance(hostname, (list, tuple)):
+        hostname = hostname[0] if hostname else None
+    return RemoteStoreManager(hostname or "127.0.0.1", int(port or 8283),
+                              timeout=float(timeout or 30.0))
+
+
 def _not_ported(shorthand: str):
     def refuse(**kw):
         raise not_ported(f"storage.backend={shorthand!r}")
@@ -62,5 +72,6 @@ def _not_ported(shorthand: str):
 
 register_store("inmemory", _inmemory)
 register_store("sqlite", _sqlite)
-for _name in ("gdbm", "remote", "remote-cluster"):
+register_store("remote", _remote)
+for _name in ("gdbm", "remote-cluster"):
     register_store(_name, _not_ported(_name))

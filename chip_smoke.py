@@ -170,16 +170,18 @@ Phases, each of which raises on failure:
    (``PPR_RTOL``). The two paths' launches are ``launches_by_path
    ["live"]`` and ``["interactive"]`` of ``frontier_round`` and
    ``batched_exhaust``;
-12. bench.py's ``store_ingest`` stage at s22 (after phase 11, before the
-   s26 phases): ``olap/bulk.ingest_rmat_store`` bulk-loads the R-MAT
-   edges (phase 5's generator, scale, edge factor and seed) into
+12. bench.py's ``store_ingest`` stage at s21, one below the engine's
+   scale (``STORE_SCALE``: the store path sets the smoke's clock; after
+   phase 11, before the s26 phases): ``olap/bulk.ingest_rmat_store``
+   bulk-loads the R-MAT edges (phase 5's generator, edge factor and seed
+   at ``STORE_SCALE``) into
    ``titan_tpu_torch.open("inmemory")`` and scans them back into a
-   symmetric snapshot; bench.py's keys (``store_ingest_s22``) and the
+   symmetric snapshot; bench.py's keys (``store_ingest_s21``) and the
    host's peak RSS are printed. The snapshot's ``vertex_ids`` are the
    loader's, ascending; its (src, dst) multiset is the generated edges
    plus their reverse (duplicates and self-loops kept; sorted on the
    card). Its chunked CSR and BFS from bench.py's source equal the BFS on
-   phase 5's generated graph (``bulk.dist_match``). Then
+   the generated graph of that scale (``bulk.dist_match``). Then
    ``g.compute(backend="gpu")``: ``snapshot(directed=False)`` built
    through the graph entry, 20 PageRank supersteps through ``seg_scan``
    within ``PAGERANK_RTOL`` of a float64 scipy PageRank over the same
@@ -192,7 +194,7 @@ Phases, each of which raises on failure:
    be above zero. The phase's snapshots are closed; its graph stays open
    for phase 13;
 13. the live plane (``olap/live/plane.py``) over phase 12's store graph
-   at s22 (13a) and a cross-instance sqlite graph (13b). 13a:
+   at s21 (13a) and a cross-instance sqlite graph (13b). 13a:
    ``LiveGraphPlane(graph, device="cuda")`` (the default policy; the
    overlay's smallest bucket ``PLANE_MIN_CAP``) and
    ``JobScheduler(live=plane)``, pumped by hand: 16 BFS jobs fused to
@@ -229,7 +231,7 @@ Phases, each of which raises on failure:
 14. Gremlin traversals compiled onto the card
    (``traversal/olap_compile.py``; no kernel of the port: each expand is
    a gather and an int64 ``index_add_``). 14a on phase 12's refreshed
-   s22 store snapshot, passed explicitly before phase 12 closes it:
+   s21 store snapshot, passed explicitly before phase 12 closes it:
    ``V().out().out().count()``, ``V().repeat(out()).times(3).count()``
    (counts past 2^31 at a vertex), ``V(16 seeded ids).both().dedup()
    .both().dedup().count()`` and ``V(hub).out().out().dedup().id_()``
@@ -242,7 +244,7 @@ Phases, each of which raises on failure:
    gods and a seeded ``PROPERTY_VERTICES``-vertex labelled property
    graph, compiled on CUDA and equal to the port's interpreter, and
    K_50's 6-hop count equal to the interpreter's and to 50 * 49^6;
-15. the front door (``server.py``) on phase 12's refreshed s22 store
+15. the front door (``server.py``) on phase 12's refreshed s21 store
    snapshot and graph, inside phase 12's hook after 14a: a
    ``GraphServer`` over the store graph with
    ``JobScheduler(snapshot=snap, device="cuda")`` on port 0, every
@@ -266,16 +268,38 @@ Phases, each of which raises on failure:
    over HTTP beside phase 10's served and direct walls. Its launches are
    ``launches_by_path["server"]``; all three must be above zero;
 16. the replica fleet at bench.py's ``fleet_stage`` shape (after phase
-   13): one storage node (the port's ``KCVSServer``, mounted with
-   ``storage.backend: remote``; bench.py's ``remote-cluster`` ring is not
-   ported) holding n = 192 and 900 edges of seed 42, two replicas from
-   ``olap/fleet/replica.build`` on the card behind a ``FleetRouter``: 4
-   BFS, 4 SSSP and 4 WCC jobs, each equal to the direct call on a
-   snapshot of the same graph, the per-replica routed counts, the
-   federated ``/metrics?federate=1`` and ``/fleet``; then a victim
-   replica (never started) stopped after dispatch, its job finished on
-   the survivor on attempt 2 with one redispatch, equal to the direct
-   BFS. Its launches are ``launches_by_path["fleet"]`` where above zero.
+   13): one storage node (the port's ``KCVSServer``) mounted as bench.py
+   mounts it, ``storage.backend: remote-cluster`` with the node as the
+   ring's one host, holding n = 192 and 900 edges of seed 42, two
+   replicas from ``olap/fleet/replica.build`` on the card behind a
+   ``FleetRouter``: 4 BFS, 4 SSSP and 4 WCC jobs, each equal to the
+   direct call on a snapshot of the same graph, the per-replica routed
+   counts, the federated ``/metrics?federate=1`` and ``/fleet``; then a
+   victim replica (never started) stopped after dispatch, its job
+   finished on the survivor on attempt 2 with one redispatch, equal to
+   the direct BFS. Its launches are ``launches_by_path["fleet"]`` where
+   above zero;
+17. the scan cluster and mixed indexes (host code beside the card).
+   17d, inside phase 16 before its storage stops: ``compute(backend=
+   "host")`` runs an in-degree ``VertexProgram`` on the fleet graph
+   through a ``JobScheduler`` on the card (``run_async``) beside a
+   ``dense`` PageRank job; the degrees equal the directed snapshot's
+   counted on the card, the PageRank is bit-equal to
+   ``GPUGraphComputer.run``; its launches are
+   ``launches_by_path["host_computer"]``. Then, at bench.py's
+   ``distributed_scan_stage`` shape: (a) two storage nodes at
+   replication 2 holding 64 persons, two HTTP scan workers, a traced
+   ``RemoteScanRunner``: ``VertexCountJob`` counts 64, equal to
+   ``InProcessSplitRunner`` and ``StandardScanner``, the stitched trace
+   4 coordinator splits of 4 spans with nothing dropped; (b)
+   ``DistributedScanRunner`` in two spawned processes over a sqlite graph
+   of the same 64 persons, while this process holds the CUDA context,
+   equal to (a); (c) a mixed index on ``name`` over ``memindex``,
+   ``lucene`` (sqlite FTS5) and an ``IndexServer`` (``remote-index``),
+   each REGISTER, REINDEX over (a)'s workers, ENABLE, then an
+   ``index_query`` and a ``textPrefix`` graph query on the mixed cover
+   (the profiler's groups) equal to a full scan, then DISABLE; (e) each
+   step's wall on the host clock. Phases 16 and 17 must end within 60 s.
 
 The line before the last is the ``{"kernels": [...]}`` record of the
 three kernels (each record's ``launches`` sums its paths, listed under
@@ -3553,9 +3577,14 @@ def phase_interactive_s22(P, FR, PR, SN, ref, live, card, launches) -> dict:
     return stats
 
 
-#: bench.py's store_ingest stage at the engine's scale (s22), its edge
-#: factor and seed, bulk-loaded into the port's in-memory store
-STORE_SCALE = ENGINE_SCALE
+#: bench.py's store_ingest stage (bench.py:992) one scale below the
+#: engine's, with bench.py's edge factor and seed, bulk-loaded into the
+#: port's in-memory store. The store path (phases 12-15) is host-bound
+#: and sets the smoke's clock: at s22 the smoke took 1,153 s of its
+#: 1,200 s on an H100 80GB HBM3 at 700.00 W whose host ran phases 12-13
+#: 1.23 times slower than the one before, so the path runs at s21, where
+#: every kernel still launches on it (the K = 2 and K = 16 batches)
+STORE_SCALE = ENGINE_SCALE - 1
 #: the freshness commit of phase 12: edges added and removed
 STORE_ADDS, STORE_REMOVES = 64, 4
 
@@ -3608,11 +3637,12 @@ def freshness_commit(g, snap, rng) -> None:
 
 
 def phase_store_ingest(P, G, ref, card, runs, traverse=None) -> tuple:
-    """Phase 12, bench.py's store_ingest stage at s22 (``bench.py:992``):
-    the R-MAT edges bulk-loaded into ``titan_tpu_torch.open("inmemory")``
-    and scanned back into a symmetric snapshot (``ingest_rmat_store``),
-    its arrays checked against the generated edges, its BFS against the
-    BFS on phase 5's generated graph; then ``graph.compute()``: two BFS
+    """Phase 12, bench.py's store_ingest stage at ``STORE_SCALE``
+    (``bench.py:992``): the R-MAT edges bulk-loaded into
+    ``titan_tpu_torch.open("inmemory")`` and scanned back into a
+    symmetric snapshot (``ingest_rmat_store``), its arrays checked against
+    the generated edges, its BFS against the BFS on the generated graph of
+    the same scale; then ``graph.compute()``: two BFS
     jobs through the graph-backed scheduler, whose pool's snapshot must
     equal the ingest's, PageRank through ``seg_scan`` over it, a
     freshness commit and its ``refresh()``. ``runs`` counts the main
@@ -3630,7 +3660,8 @@ def phase_store_ingest(P, G, ref, card, runs, traverse=None) -> tuple:
     from titan_tpu_torch.utils.metrics import MetricManager
 
     dev = torch.device("cuda")
-    hg, scale = ref["hg"], STORE_SCALE
+    scale = STORE_SCALE
+    hg = G.load_or_build(scale, EDGE_FACTOR, seed=SEED, verbose=False)
     n, m = 1 << scale, (1 << scale) * EDGE_FACTOR
     # bench.py:1055-1079: the dists compare only when the reference graph
     # and the ingest came from the same generator, scale and seed
@@ -3912,7 +3943,7 @@ def compactions(sched) -> list:
 
 def phase_live_plane(P, FR, SN, card, g, runs, fresh) -> dict:
     """Phase 13a, the live plane's local lane over phase 12's store graph
-    at s22: ``LiveGraphPlane`` and ``JobScheduler(live=)``, its fresh scan
+    at s21: ``LiveGraphPlane`` and ``JobScheduler(live=)``, its fresh scan
     held to phase 12's refreshed snapshot (``fresh``), the 16 BFS on a
     clean base, commits in bench.py's live_refresh shape served over base
     + overlay until the default budget folds the epoch on the card, SSSP,
@@ -4348,9 +4379,9 @@ def phase_live_feed(P, SN, card, runs) -> None:
 
 # ---- phase 14: Gremlin traversals compiled onto the card
 
-#: the seeded starts of the s22 both() chain
+#: the seeded starts of the store snapshot's both() chain
 TRAVERSAL_STARTS = 16
-#: timed runs of each s22 chain after its first (checked) run
+#: timed runs of each store chain after its first (checked) run
 TRAVERSAL_REPS = 3
 #: the seeded labelled property graph of the small-graph checks
 PROPERTY_VERTICES, PROPERTY_EDGES = 2000, 10000
@@ -4386,8 +4417,8 @@ def host_expand(A, c, direction: str):
     return A @ c + A.T @ c
 
 
-def s22_traversal_refs(snap, starts, hub) -> dict:
-    """The four s22 chains' answers in int64 on the host, computed from
+def store_traversal_refs(snap, starts, hub) -> dict:
+    """The four store chains' answers in int64 on the host, computed from
     the snapshot's src and dst alone (scipy sparse), and the largest
     count at one vertex of the 2- and 3-hop chains."""
     import scipy.sparse as sp
@@ -4417,7 +4448,8 @@ def s22_traversal_refs(snap, starts, hub) -> dict:
 
 
 def expand_parts(snap, dev) -> dict:
-    """One out() expand from all-ones counts at s22, by CUDA events: the
+    """One out() expand from all-ones counts on the store snapshot, by
+    CUDA events: the
     gather ``counts[src]`` and the ``index_add_`` into [n] apart, each
     beside the time its bytes take at the card's memory rate (each
     input read once, each output written once); and the same
@@ -4443,8 +4475,8 @@ def expand_parts(snap, dev) -> dict:
                                         / HBM_BYTES_PER_S * 1e3, 4)}
 
 
-def phase_traversal_s22(F, S, OC, g, snap, card) -> None:
-    """Phase 14a on phase 12's s22 store snapshot (passed explicitly, so
+def phase_traversal_store(F, S, OC, g, snap, card) -> None:
+    """Phase 14a on phase 12's store snapshot (passed explicitly, so
     nothing rescans the store): four chains through
     ``g.traversal().with_computer("gpu", snapshot=snap)``, each compiled
     (``run_compiled``) and equal to the int64 host reference; the 3-hop
@@ -4458,7 +4490,7 @@ def phase_traversal_s22(F, S, OC, g, snap, card) -> None:
     live = np.flatnonzero(snap.out_degree > 0)
     starts = rng.choice(live, TRAVERSAL_STARTS, replace=False)
     hub = int(np.argmax(snap.out_degree))
-    ref = Background(lambda: s22_traversal_refs(snap, starts, hub))
+    ref = Background(lambda: store_traversal_refs(snap, starts, hub))
     src = g.traversal().with_computer("gpu", snapshot=snap)
     chains = {
         "out_out": lambda: src.V().out().out().count(),
@@ -4640,7 +4672,7 @@ def phase_traversal_small(OC, card) -> None:
             g.close()
 
 
-# ---- phase 15: the front door at s22, over HTTP
+# ---- phase 15: the front door on the store graph, over HTTP
 
 #: the HTTP lane burst's fuse window: the batch closes when its 16th
 #: request arrives, so a wide window costs nothing once all are in
@@ -4726,8 +4758,8 @@ def http_status(url: str, path: str, data: bytes | None = None) -> int:
         return e.code
 
 
-def phase_server_s22(F, P, g, snap, card, runs, phase10) -> None:
-    """Phase 15 on phase 12's refreshed s22 store snapshot and its graph:
+def phase_server_store(F, P, g, snap, card, runs, phase10) -> None:
+    """Phase 15 on phase 12's refreshed store snapshot and its graph:
     ``GraphServer(graph, scheduler=JobScheduler(snapshot=snap,
     device="cuda"))`` on port 0, device profiling on, every request
     through a socket (``utils/httpnode``). ``runs`` counts the served
@@ -4775,7 +4807,7 @@ def phase_server_s22(F, P, g, snap, card, runs, phase10) -> None:
     script = f"g.V({int(vids[v0])}).out().out().dedup().count()"
 
     def burst():
-        # no collection inside a burst: a full one over the s22 store's
+        # no collection inside a burst: a full one over the store's
         # heap takes seconds, longer than the fuse window
         gc.disable()
         try:
@@ -4968,15 +5000,16 @@ def fleet_drive(router, jids, wait_s: float = FLEET_WAIT_S) -> list:
         time.sleep(0.01)
 
 
-def phase_fleet(card, runs) -> None:
+def phase_fleet(card, runs, after=None) -> None:
     """Phase 16: bench.py's fleet_stage on the card. One storage node (the
-    port's ``KCVSServer`` over an in-memory store, mounted with
-    ``storage.backend: remote``) holds the n = 192, 900-edge graph of
-    seed 42; two replicas from ``olap/fleet/replica.build`` (GraphServer
-    + JobScheduler on CUDA each) behind a ``FleetRouter`` take a stream
-    of 4 BFS, 4 SSSP and 4 WCC jobs, each result equal to the direct call
-    on a snapshot of the same graph; then one failover. ``runs`` counts
-    the served launches."""
+    port's ``KCVSServer`` over an in-memory store, mounted as bench.py
+    mounts it, ``storage.backend: remote-cluster`` with the node as the
+    ring's one host) holds the n = 192, 900-edge graph of seed 42; two
+    replicas from ``olap/fleet/replica.build`` (GraphServer + JobScheduler
+    on CUDA each) behind a ``FleetRouter`` take a stream of 4 BFS, 4 SSSP
+    and 4 WCC jobs, each result equal to the direct call on a snapshot of
+    the same graph; then one failover. ``runs`` counts the served
+    launches; ``after(cfg)`` runs on the same storage before it stops."""
     import shutil
 
     import titan_tpu_torch
@@ -4995,12 +5028,10 @@ def phase_fleet(card, runs) -> None:
     ck = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       ".bench_cache", "fleet_checkpoints")
     shutil.rmtree(ck, ignore_errors=True)
-    # bench.py mounts remote-cluster over this one node; the sharded ring
-    # (storage/cluster.py) is not ported (ROADMAP queue 1, item 11), so
-    # the one-node remote store stands in for it
+    # bench.py:1398-1399: remote-cluster over this one node
     storage = KCVSServer(InMemoryStoreManager()).start()
-    cfg = {"storage.backend": "remote", "storage.hostname": "127.0.0.1",
-           "storage.port": storage.port}
+    cfg = {"storage.backend": "remote-cluster",
+           "storage.hostname": [f"127.0.0.1:{storage.port}"]}
     reps, routers = [], []
     try:
         loader = titan_tpu_torch.open(dict(cfg))
@@ -5116,8 +5147,9 @@ def phase_fleet(card, runs) -> None:
               and np.array_equal(got["dist"], dist[0]),
               f"failover: {w}")
         say(f"phase 16: fleet on {card} (bench.py's fleet_stage shape: "
-            f"n={FLEET_N}, {FLEET_M} edges, seed {FLEET_SEED}, one remote "
-            f"storage node, loaded and snapshotted in {load_s:.1f} s): "
+            f"n={FLEET_N}, {FLEET_M} edges, seed {FLEET_SEED}, remote-cluster "
+            f"over one storage node, loaded and snapshotted in "
+            f"{load_s:.1f} s): "
             f"4 BFS, 4 SSSP and 4 WCC through the router in "
             f"{stream_s:.4f} s, each equal to the direct call on the "
             f"card; routed per replica {routed}; /metrics?federate=1 "
@@ -5125,6 +5157,8 @@ def phase_fleet(card, runs) -> None:
             f"failover: the job finished on b-survivor on attempt 2, one "
             f"redispatch, equal to the direct BFS, redispatch latency "
             f"{lat['max']:.3f} ms; {time.time() - t_phase:.1f} s")
+        if after is not None:
+            after(cfg)
     finally:
         for r in routers:
             r.stop()
@@ -5133,6 +5167,319 @@ def phase_fleet(card, runs) -> None:
             g_.close()
         storage.stop()
         shutil.rmtree(ck, ignore_errors=True)
+
+# ---- phase 17: the scan cluster and mixed indexes (host code), at
+# bench.py's distributed_scan_stage shape
+
+#: bench.py's distributed_scan_stage graph (bench.py:1303-1375)
+SCAN_N = 64
+#: phase 17c's graph query, its mixed cover, and its index query
+MIXED_PREFIX, MIXED_TOKEN = "b1", "b7"
+
+
+def degree_program():
+    """In-degree by messages (``tests/test_olap.py``'s program): each vertex
+    sends 1 along every out-edge, then sums what it received."""
+    from titan_tpu_torch.olap.api import VertexProgram
+
+    class Degree(VertexProgram):
+        def execute(self, vertex, messenger, memory):
+            if memory.iteration == 0:
+                messenger.send(1, [n.id for n in vertex.out()])
+            else:
+                vertex.set_state("indeg", sum(messenger.receive()))
+
+        def terminate(self, memory):
+            return memory.iteration >= 1
+
+        def combiner(self):
+            return lambda a, b: a + b
+    return Degree()
+
+
+def phase_host_computer(cfg, card, runs) -> dict:
+    """Phase 17d, on phase 16's fleet graph before its storage stops:
+    ``compute(backend="host")`` runs the in-degree ``VertexProgram``
+    through a ``JobScheduler`` on the card (``run_async``, kind
+    ``callable``) beside a ``dense`` PageRank job on the graph's
+    snapshot; the degrees equal the directed snapshot's, counted on the
+    card, and the PageRank is bit-equal to ``GPUGraphComputer.run``.
+    ``runs`` counts the scheduler's launches."""
+    import titan_tpu_torch
+    from titan_tpu_torch.models import pagerank as MP
+    from titan_tpu_torch.olap import engine as E
+    from titan_tpu_torch.olap import snapshot as SN
+    from titan_tpu_torch.olap.api import JobSpec
+    from titan_tpu_torch.olap.computer import HostGraphComputer
+    from titan_tpu_torch.olap.serving import JobScheduler
+
+    t0 = time.time()
+    dev = torch.device("cuda")
+    g = titan_tpu_torch.open(dict(cfg))
+    sched = None
+    try:
+        comp = g.compute(backend="host")
+        check(isinstance(comp, HostGraphComputer), f"compute('host') gave "
+              f"{type(comp).__name__}")
+        dsnap = SN.build(g, directed=True)
+        usnap = SN.build(g, directed=False)
+        inv = np.where(usnap.out_degree > 0, 1.0 / np.maximum(
+            usnap.out_degree, 1), 0.0).astype(np.float32)
+        sched = JobScheduler(snapshot=usnap, autostart=False)
+
+        def both():
+            with sched._cv:
+                host = comp.run_async(degree_program(), sched)
+                dense = sched.submit(JobSpec(kind="dense", params={
+                    "program": MP.PageRank(0.85, 20, 0.0), "n": usnap.n,
+                    "inv_outdeg": inv}))
+            sched.start()
+            for j in (host, dense):
+                check(j.wait(120.0), f"{j} did not finish in 120 s")
+            return host, dense
+        (host, dense), served_s = wall_s(lambda: runs.run(both))
+        check(host.state.value == "done" and dense.state.value == "done",
+              f"host job {host.state.value} {host.error}, dense job "
+              f"{dense.state.value} {dense.error}")
+        res = host.result["value"]
+        got = np.array([res.state_of(int(v)).get("indeg", 0)
+                        for v in dsnap.vertex_ids], dtype=np.int64)
+        want = torch.bincount(torch.as_tensor(dsnap.dst, device=dev),
+                              minlength=dsnap.n).cpu().numpy()
+        check(res.iterations == 2 and np.array_equal(got, want),
+              f"host in-degrees differ from the snapshot's on the card at "
+              f"{int(np.sum(got != want))} vertices")
+        direct = MP.run(E.GPUGraphComputer(snapshot=usnap), 0.85, 20, 0.0,
+                        usnap)
+        check(dense.result["iterations"] == 20 and np.array_equal(
+            dense.result["rank"], direct["rank"]), "the dense PageRank "
+            "beside the host computer is not bit-equal to "
+            "GPUGraphComputer.run")
+    finally:
+        if sched is not None:
+            sched.close()
+        g.close()
+    wall = time.time() - t0
+    say(f"phase 17d: compute(backend='host') in-degrees of the fleet graph "
+        f"({dsnap.n} vertices, {len(dsnap.dst)} directed edges) equal the "
+        f"snapshot's counted on {card}; served beside a dense PageRank "
+        f"(bit-equal to GPUGraphComputer.run) in {served_s:.4f} s; "
+        f"{wall:.2f} s")
+    return {"host_computer_s": wall}
+
+
+def scan_counts(m) -> dict:
+    from titan_tpu_torch.olap.jobs import VertexCountJob
+    return {"vertices": m.get(VertexCountJob.VERTICES),
+            "edges": m.get(VertexCountJob.EDGES)}
+
+
+def stitched(tree) -> tuple[int, int]:
+    """(spans, remote instances) of a stitched scan trace."""
+    spans, instances, stack = 0, set(), list(tree["spans"])
+    while stack:
+        node = stack.pop()
+        spans += 1
+        attrs = node.get("attrs") or {}
+        if attrs.get("remote"):
+            instances.add(attrs["instance"])
+        stack.extend(node["children"])
+    return spans, len(instances)
+
+
+def mixed_index_round(cfg, workers, backing: str, P) -> dict:
+    """One mixed index on ``name`` backed by ``backing``: REGISTER, REINDEX
+    over the scan workers, ENABLE; ``index_query`` and a graph query that
+    the profiler shows on the mixed cover, each equal to a full scan;
+    then DISABLE, so the next backing's index is the cover."""
+    import titan_tpu_torch
+    from titan_tpu_torch.olap.scan_worker import distributed_reindex_remote
+    from titan_tpu_torch.query import profile as QP
+
+    name = f"name_{backing}"
+    g = titan_tpu_torch.open(dict(cfg))
+    try:
+        mgmt = g.management()
+        mgmt.build_index(name, "vertex").add_key(
+            g.schema.get_by_name("name")).build_mixed_index(backing)
+        mgmt.update_index(name, "register")
+        mgmt.commit()
+    finally:
+        g.close()
+    m, reindex_s = wall_s(lambda: distributed_reindex_remote(
+        [f"127.0.0.1:{w.port}" for w in workers], cfg, name))
+    check(m.get("index-entries-added") == SCAN_N, f"REINDEX {name} added "
+          f"{m.get('index-entries-added')} != {SCAN_N}")
+    g = titan_tpu_torch.open(dict(cfg))
+    try:
+        g.management().update_index(name, "enable")
+        tx = g.new_transaction(read_only=True)
+        names = {v.id: v.value("name") for v in tx.vertices()}
+        tx.rollback()
+        hits, query_s = wall_s(lambda: g.index_query(
+            name, f"name:{MIXED_TOKEN}"))
+        check({v.id for v, _ in hits}
+              == {i for i, s in names.items() if s == MIXED_TOKEN},
+              f"index_query on {name}: {[v.id for v, _ in hits]}")
+        pred = P.text_prefix(MIXED_PREFIX)
+        root = QP.QueryProfiler()
+        tx = g.new_transaction(read_only=True)
+        got = {v.id for v in tx.query().has("name", pred)
+               .with_profiler(root).vertices()}
+        tx.rollback()
+        want = {i for i, s in names.items() if s is not None and pred(s)}
+        kids = root.to_dict()["children"]
+        check([c["name"] for c in kids] == [QP.OPTIMIZATION,
+                                            QP.BACKEND_QUERY]
+              and kids[0]["annotations"].get("indexed") is True
+              and kids[1]["annotations"].get("hits") == len(want)
+              and got == want and len(want) == 11,
+              f"graph query on {name}: profile {kids}, {len(got)} of "
+              f"{len(want)}")
+        g.management().update_index(name, "disable")
+    finally:
+        g.close()
+    return {"reindex_s": reindex_s, "index_query_s": query_s}
+
+
+def phase_scan_cluster(card) -> dict:
+    """Phase 17a-c: bench.py's distributed_scan_stage (two storage nodes
+    at replication factor 2, n = 64 persons, two HTTP scan workers with
+    trace propagation), held to ``InProcessSplitRunner`` and
+    ``StandardScanner``; ``DistributedScanRunner`` over a sqlite graph in
+    two spawned processes while this process holds the CUDA context; a
+    mixed index on ``name`` over ``memindex``, ``lucene`` (FTS5) and one
+    ``IndexServer`` (``remote-index``), each reindexed over the workers."""
+    import shutil
+
+    import titan_tpu_torch
+    from titan_tpu_torch.indexing.memindex import MemoryIndex
+    from titan_tpu_torch.indexing.remote import IndexServer
+    from titan_tpu_torch.obs.tracing import Tracer
+    from titan_tpu_torch.olap.distributed import (DistributedScanRunner,
+                                                  InProcessSplitRunner,
+                                                  ScanJobSpec)
+    from titan_tpu_torch.olap.jobs import VertexCountJob
+    from titan_tpu_torch.olap.scan_worker import (RemoteScanRunner,
+                                                  ScanWorkerServer)
+    from titan_tpu_torch.query.predicates import P
+    from titan_tpu_torch.storage.inmemory import InMemoryStoreManager
+    from titan_tpu_torch.storage.remote import KCVSServer
+    from titan_tpu_torch.storage.scan import StandardScanner
+    from titan_tpu_torch.utils.metrics import MetricManager
+
+    walls = {}
+    t_phase = time.time()
+    spec = ScanJobSpec("titan_tpu_torch.olap.jobs:make_vertex_count_job")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".bench_cache", "scan_cluster")
+    shutil.rmtree(root, ignore_errors=True)
+    storage = [KCVSServer(InMemoryStoreManager()).start() for _ in range(2)]
+    workers = [ScanWorkerServer().start() for _ in range(2)]
+    node = IndexServer(MemoryIndex("node")).start()
+    try:
+        cfg = {"storage.backend": "remote-cluster",
+               "storage.hostname": [f"127.0.0.1:{s.port}" for s in storage],
+               "storage.cluster.replication-factor": 2}
+
+        def load(c):
+            g = titan_tpu_torch.open(dict(c))
+            try:
+                tx = g.new_transaction()
+                for i in range(SCAN_N):
+                    tx.add_vertex("person", name=f"b{i}")
+                tx.commit()
+            finally:
+                g.close()
+        _, walls["load_s"] = wall_s(lambda: load(cfg))
+
+        # ---- (a) bench.py's stage: the scan over HTTP workers, traced
+        mm, tracer = MetricManager(), Tracer()
+        runner = RemoteScanRunner([f"127.0.0.1:{w.port}" for w in workers],
+                                  cfg, metrics=mm, tracer=tracer,
+                                  trace_id="bench-scan")
+        got, walls["remote_scan_s"] = wall_s(lambda: runner.run(spec))
+        remote = scan_counts(got)
+        tree = tracer.tree("bench-scan")
+        check(tree is not None, "no stitched trace for bench-scan")
+        spans, instances = stitched(tree)
+        ingest = int(mm.counter_value("obs.ingest.spans"))
+        dropped = int(mm.counter_value("obs.ingest.dropped"))
+        g = titan_tpu_torch.open(dict(cfg))
+        try:
+            inproc, walls["in_process_s"] = wall_s(lambda: scan_counts(
+                InProcessSplitRunner(g, num_workers=2).run(spec)))
+            b = g.backend
+            full, walls["scanner_s"] = wall_s(lambda: scan_counts(
+                StandardScanner(b.edge_store.store, b.manager).execute(
+                    VertexCountJob(g), graph=g)))
+        finally:
+            g.close()
+        check(remote["vertices"] == SCAN_N and remote == inproc == full,
+              f"scan counts: remote {remote}, in-process {inproc}, "
+              f"scanner {full}")
+        check(len(tree["spans"]) == 2 * len(workers) and spans
+              == 4 * len(tree["spans"]) and ingest == spans
+              - len(tree["spans"]) and dropped == 0,
+              f"stitched trace: {len(tree['spans'])} coordinator splits, "
+              f"{spans} spans, ingest {ingest}, dropped {dropped}")
+        say(f"phase 17a: distributed_scan_stage on the host beside {card}: "
+            f"{remote['vertices']} vertices over {len(workers)} HTTP scan "
+            f"workers (remote-cluster, 2 nodes, replication 2), equal to "
+            f"InProcessSplitRunner and StandardScanner; stitched trace: "
+            f"{len(tree['spans'])} coordinator splits, {spans} spans, "
+            f"{instances} remote instances, ingest {ingest} spans, "
+            f"{dropped} dropped")
+
+        # ---- (b) split processes (spawn) over sqlite, CUDA held here
+        check(torch.cuda.is_initialized(), "the coordinator holds no CUDA "
+              "context")
+        scfg = {"storage.backend": "sqlite",
+                "storage.directory": os.path.join(root, "sqlite")}
+        load(scfg)
+        dist, walls["spawned_s"] = wall_s(lambda: scan_counts(
+            DistributedScanRunner(scfg, num_workers=2).run(spec)))
+        g = titan_tpu_torch.open(dict(scfg))
+        try:
+            local = scan_counts(InProcessSplitRunner(g, num_workers=2)
+                                .run(spec))
+        finally:
+            g.close()
+        check(dist == local == remote, f"spawned splits {dist}, "
+              f"in-process {local}, phase 17a {remote}")
+        say(f"phase 17b: DistributedScanRunner, 2 spawned processes over "
+            f"sqlite while this process holds the CUDA context: {dist}, "
+            f"equal to InProcessSplitRunner and to phase 17a")
+
+        # ---- (c) mixed indexes on name, reindexed over the workers; the
+        # 64 persons lie in one partition (bench.py's default placement),
+        # so one split writes the memindex directory, which keeps only
+        # its last writer's snapshot (ROADMAP queue 3, item 14)
+        icfg = dict(cfg)
+        icfg.update({
+            "index.memindex.backend": "memindex",
+            "index.memindex.directory": os.path.join(root, "memindex"),
+            "index.lucene.backend": "lucene",
+            "index.lucene.directory": os.path.join(root, "lucene"),
+            "index.node.backend": "remote-index",
+            "index.node.hostname": ["127.0.0.1"],
+            "index.node.port": node.port})
+        for backing in ("memindex", "lucene", "node"):
+            r = mixed_index_round(icfg, workers, backing, P)
+            walls[f"{backing}_reindex_s"] = r["reindex_s"]
+            walls[f"{backing}_index_query_s"] = r["index_query_s"]
+        say(f"phase 17c: a mixed index on name over memindex, lucene (FTS5) "
+            f"and an IndexServer (remote-index): each REGISTER, REINDEX over "
+            f"{len(workers)} scan workers ({SCAN_N} entries), ENABLE; "
+            f"index_query 'name:{MIXED_TOKEN}' and has('name', "
+            f"textPrefix('{MIXED_PREFIX}')) on the mixed cover equal to a "
+            f"full scan")
+    finally:
+        for n_ in workers + storage + [node]:
+            n_.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    walls["phase_s"] = time.time() - t_phase
+    return walls
 
 
 def sssp_round_split(trace) -> list[dict]:
@@ -5275,8 +5622,8 @@ def main() -> int:
     store_runs, server_runs = ServedLaunches(F, S), ServedLaunches(F, S)
 
     def on_store(g, snap):
-        phase_traversal_s22(F, S, OC, g, snap, card)
-        phase_server_s22(F, P, g, snap, card, server_runs, phase10)
+        phase_traversal_store(F, S, OC, g, snap, card)
+        phase_server_store(F, P, g, snap, card, server_runs, phase10)
     _, store_g, fresh = phase_store_ingest(P, G, ref, card, store_runs,
                                            traverse=on_store)
     check(all(server_runs.total.values()), f"a kernel was never launched "
@@ -5300,9 +5647,20 @@ def main() -> int:
           f"a kernel was never launched on the plane path: "
           f"{plane_runs.total}")
     say(f"phase 13: plane launches {plane_runs.total}")
-    fleet_runs = ServedLaunches(F, S)
-    phase_fleet(card, fleet_runs)
+    fleet_runs, host_runs = ServedLaunches(F, S), ServedLaunches(F, S)
+    walls = {}
+    t16 = time.time()
+    phase_fleet(card, fleet_runs, after=lambda cfg: walls.update(
+        phase_host_computer(cfg, card, host_runs)))
+    walls["fleet_s"] = time.time() - t16 - walls["host_computer_s"]
     say(f"phase 16: fleet launches {fleet_runs.total}")
+    check(host_runs.total["seg_scan"] > 0, f"seg_scan was never launched "
+          f"beside the host computer: {host_runs.total}")
+    say(f"phase 17d: launches {host_runs.total}")
+    walls.update(phase_scan_cluster(card))
+    say("phase 17e: walls (host clock, s) " + json.dumps(walls))
+    check(walls["fleet_s"] + walls["host_computer_s"] + walls["phase_s"]
+          < 60.0, f"phases 16 and 17 took more than 60 s: {walls}")
     gc.collect()          # the store and its snapshots, before s26
     del ref               # and with it the s22 graph cached on the card
     torch.cuda.empty_cache()
@@ -5336,6 +5694,8 @@ def main() -> int:
         r["launches_by_path"]["server"] = server_runs.total[key]
         if fleet_runs.total[key]:
             r["launches_by_path"]["fleet"] = fleet_runs.total[key]
+        if host_runs.total[key]:
+            r["launches_by_path"]["host_computer"] = host_runs.total[key]
         r["launches"] = sum(r["launches_by_path"].values())
     print(json.dumps({"kernels": [rec, seg_rec, x_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {

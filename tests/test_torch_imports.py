@@ -6,6 +6,7 @@ import ast
 import pathlib
 import subprocess
 import sys
+import textwrap
 
 import pytest
 import torch
@@ -313,5 +314,126 @@ def test_serving_over_http_loads_no_jax():
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+#: the scan cluster and the mixed indexes, with the host computer
+SCAN_AND_INDEX = [("storage", "cluster"), ("storage", "scan")] + [
+    ("olap", m) for m in ("api", "jobs", "distributed", "scan_worker",
+                          "computer")] + [
+    ("indexing", m) for m in ("__init__", "provider", "memindex",
+                              "ftsindex", "jobs", "remote")]
+
+
+def test_the_scan_cluster_and_indexes_are_scanned():
+    for parts in SCAN_AND_INDEX:
+        path = ROOT.joinpath("titan_tpu_torch", *parts[:-1],
+                             parts[-1] + ".py")
+        assert path in FILES, path
+
+
+def test_scans_indexes_and_the_host_computer_load_no_jax():
+    """What the AST scan cannot see, at run time in a fresh interpreter:
+    the factories a scan imports by name, two spawned split processes, a
+    scan worker's job over a remote-cluster ring, REINDEX over it, the
+    three index providers opened by name (memindex, lucene, remote-index)
+    and the host computer load no module of jax or titan_tpu; a factory
+    or an index backend under the JAX package is refused before import."""
+    code = textwrap.dedent("""
+        import os, sys, tempfile
+        import titan_tpu_torch
+        from titan_tpu_torch.indexing.memindex import MemoryIndex
+        from titan_tpu_torch.indexing.remote import IndexServer
+        from titan_tpu_torch.olap.api import VertexProgram
+        from titan_tpu_torch.olap.distributed import (DistributedScanRunner,
+                                                      ScanJobSpec)
+        from titan_tpu_torch.olap.scan_worker import (
+            RemoteScanRunner, ScanWorkerServer, distributed_reindex_remote)
+        from titan_tpu_torch.storage.inmemory import InMemoryStoreManager
+        from titan_tpu_torch.storage.remote import KCVSServer
+
+        class Ones(VertexProgram):
+            def execute(self, vertex, messenger, memory):
+                vertex.set_state("one", 1)
+
+            def terminate(self, memory):
+                return True
+
+        d = tempfile.mkdtemp()
+        spec = ScanJobSpec("titan_tpu_torch.olap.jobs:make_vertex_count_job")
+        scfg = {"storage.backend": "sqlite",
+                "storage.directory": os.path.join(d, "db")}
+        g = titan_tpu_torch.open(scfg)
+        tx = g.new_transaction()
+        a, b = tx.add_vertex("person"), tx.add_vertex("person")
+        a.add_edge("knows", b)
+        tx.commit()
+        g.close()
+        m = DistributedScanRunner(scfg, num_workers=2).run(spec)
+        assert m.get("vertex-count") == 2, m._counts
+        nodes = [KCVSServer(InMemoryStoreManager()).start()
+                 for _ in range(2)]
+        ws = [ScanWorkerServer().start() for _ in range(2)]
+        idx = IndexServer(MemoryIndex("node")).start()
+        cfg = {"storage.backend": "remote-cluster",
+               "storage.hostname": [f"127.0.0.1:{n.port}" for n in nodes],
+               "storage.cluster.replication-factor": 2,
+               "index.mem.backend": "memindex",
+               "index.mem.directory": os.path.join(d, "mem"),
+               "index.fts.backend": "lucene",
+               "index.fts.directory": os.path.join(d, "fts"),
+               "index.node.backend": "remote-index",
+               "index.node.hostname": ["127.0.0.1"],
+               "index.node.port": idx.port}
+        g = titan_tpu_torch.open(cfg)
+        tx = g.new_transaction()
+        for i in range(5):
+            tx.add_vertex("person", name=f"b{i}")
+        tx.commit()
+        mg = g.management()
+        mg.build_index("byName", "vertex").add_key(
+            g.schema.get_by_name("name")).build_mixed_index("fts")
+        mg.update_index("byName", "register")
+        mg.commit()
+        g.close()
+        urls = [f"127.0.0.1:{w.port}" for w in ws]
+        assert RemoteScanRunner(urls, cfg).run(spec).get(
+            "vertex-count") == 5
+        m = distributed_reindex_remote(urls, cfg, "byName")
+        assert m.get("index-entries-added") == 5, m._counts
+        g = titan_tpu_torch.open(cfg)
+        g.management().update_index("byName", "enable")
+        assert len(g.index_query("byName", "name:b3")) == 1
+        assert {type(g.index_provider(n)).__name__
+                for n in ("mem", "fts", "node")} == {
+            "MemoryIndex", "FTSIndex", "RemoteIndexProvider"}
+        res = g.compute(backend="host").run(Ones())
+        assert len(res.states) == 5
+        g.close()
+        for bad in ("titan_tpu.olap.jobs:make_vertex_count_job",
+                    "jax.numpy:zeros"):
+            try:
+                ScanJobSpec(bad).build(None)
+            except ValueError as e:
+                assert "never imports" in str(e)
+            else:
+                raise AssertionError(bad)
+        try:
+            titan_tpu_torch.open({
+                "storage.backend": "inmemory",
+                "index.x.backend": "titan_tpu.indexing.memindex.MemoryIndex"})
+        except ValueError as e:
+            assert "never imports" in str(e)
+        else:
+            raise AssertionError("a JAX index backend opened")
+        for n in ws + nodes + [idx]:
+            n.stop()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "titan_tpu"))
+        print(bad)
+        """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -13,6 +13,8 @@ interpreter's 50 * 49^6, where JAX's int32 counts wrap (ROADMAP queue 3,
 item 10). A port traversal compiles onto the interactive lane and
 answers as the JAX lane does for the JAX traversal."""
 
+import importlib
+
 import pytest
 import torch
 
@@ -432,6 +434,52 @@ def test_jax_compiled_counts_wrap_at_2_31(k50):
     assert got == [50 * int32_wrap(49 ** 6)] == [47_819_265_650]
     assert got != source(g, "jax", False).V().repeat(A().out()).times(6) \
         .count().to_list()
+
+
+def test_self_loop_in_diverges_between_interpreter_and_compiled():
+    """ROADMAP queue 3, item 13: a vertex a with edges a->a and a->b. In
+    both packages the interpreter never yields the loop under ``in()``
+    (the loop's IN entry resolves to OUT), yields it twice under
+    ``both()``, and the transaction's edge reads count it once
+    (``vertex_edges``) or twice (``multi_vertex_edges``) under BOTH; the
+    compiled path reads the snapshot's (a, a) row and gives ``in()`` =
+    [a]. Hold no ``in()``/``both()`` chain on a graph with loops compiled
+    against interpreted."""
+    got = {}
+    for which in PKGS:
+        pkg, place, _, dsl = PKGS[which][:4]
+        g = pkg.open("inmemory")
+        g.id_assigner.placement = place(g.idm.num_partitions, batch_size=5,
+                                        seed=11)
+        try:
+            tx = g.new_transaction()
+            a, b = tx.add_vertex("node"), tx.add_vertex("node")
+            tx.add_edge(a, "link", a)
+            tx.add_edge(a, "link", b)
+            tx.commit()
+            D = importlib.import_module(
+                f"{pkg.__name__}.core.defs").Direction
+            t = g.traversal()
+
+            def ids(trav):
+                return [v.id for v in trav.to_list()]
+            interp = (ids(t.V(a.id).out()), ids(t.V(a.id).in_()),
+                      ids(t.V(a.id).both()))
+            tx = g.new_transaction(read_only=True)
+            single = [len(list(tx.vertex_edges(a.id, d)))
+                      for d in (D.OUT, D.IN, D.BOTH)]
+            multi = [len(tx.multi_vertex_edges([a.id], d)[a.id])
+                     for d in (D.OUT, D.IN, D.BOTH)]
+            tx.rollback()
+            compiled = ids(source(g, which, True).V(a.id).in_())
+            got[which] = (a.id, b.id, interp, single, multi, compiled)
+        finally:
+            g.close()
+    assert got["port"] == got["jax"]
+    a, b, interp, single, multi, compiled = got["port"]
+    assert interp == (sorted([a, b]), [], sorted([a, a, b]))
+    assert single == [2, 0, 2] and multi == [2, 0, 3]
+    assert compiled == [a]
 
 
 # -- the interactive lane ------------------------------------------------------

@@ -234,9 +234,38 @@ def test_registry_mounts_remote_and_refuses_the_rest(node):
                         port=node.port, timeout=5)
     assert isinstance(mgr, premote.RemoteStoreManager)
     assert mgr.exists() is False or mgr.exists() is True
-    for name in ("gdbm", "remote-cluster"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            store_manager(name, hostname="127.0.0.1", port=node.port)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        store_manager("gdbm", hostname="127.0.0.1", port=node.port)
+
+
+@pytest.mark.parametrize("client", ["port", "jax"])
+def test_registry_mounts_remote_cluster_like_jax(node, client):
+    """The registry's ``remote-cluster`` entry: a one-node ring over either
+    package's node, mounted by either package's registry, reads back what
+    the other package's ring wrote."""
+    import importlib
+    reg = {w: importlib.import_module(
+        f"{'titan_tpu' if w == 'jax' else 'titan_tpu_torch'}.storage"
+        ".registry") for w in PKGS}
+    other = "jax" if client == "port" else "port"
+    mgrs = {w: reg[w].store_manager(
+        "remote-cluster", hostname=[f"127.0.0.1:{node.port}"],
+        port=node.port, replication=1, write_consistency="all",
+        virtual_nodes=8, timeout=5) for w in PKGS}
+    assert {type(m).__name__ for m in mgrs.values()} == \
+        {"ClusterStoreManager"}
+    api = PKGS[client][0]
+    store = mgrs[client].open_database("rc")
+    txh = mgrs[client].begin_transaction()
+    store.mutate(b"k", [api.Entry(b"a", b"1"), api.Entry(b"b", b"2")], [],
+                 txh)
+    back = mgrs[other].open_database("rc").get_slice(
+        PKGS[other][0].KeySliceQuery(b"k", PKGS[other][0].SliceQuery()),
+        mgrs[other].begin_transaction())
+    assert [(e.column, e.value) for e in back] == [(b"a", b"1"),
+                                                  (b"b", b"2")]
+    for m in mgrs.values():
+        m.close()
 
 
 def test_storage_node_cli_needs_a_directory(capsys):

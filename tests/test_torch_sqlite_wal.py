@@ -177,11 +177,48 @@ def test_two_handles_share_one_directory(tmp_path):
 
 
 def test_the_other_stores_still_refuse(tmp_path):
-    # "remote" mounts a storage node now (tests/test_torch_remote.py)
-    for backend in ("gdbm", "remote-cluster"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            titan_tpu_torch.open({"storage.backend": backend,
-                                  "storage.directory": str(tmp_path)})
+    # "remote" mounts a storage node (tests/test_torch_remote.py) and
+    # "remote-cluster" a ring of them (tests/test_torch_cluster.py)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        titan_tpu_torch.open({"storage.backend": "gdbm",
+                              "storage.directory": str(tmp_path)})
+
+
+def test_remote_cluster_over_sqlite_nodes_equals_jax(tmp_path):
+    """``remote-cluster`` over two sqlite-backed storage nodes at
+    replication 2: the same seeded operations give the same ids, and each
+    node's sqlite rows hold the same unwrapped payloads in both
+    packages."""
+    import importlib
+    got = {}
+    for which in PKGS:
+        root = "titan_tpu" if which == "jax" else "titan_tpu_torch"
+        remote = importlib.import_module(f"{root}.storage.remote")
+        sqlitekv = importlib.import_module(f"{root}.storage.sqlitekv")
+        cluster = importlib.import_module(f"{root}.storage.cluster")
+        dirs = [str(tmp_path / which / f"n{i}") for i in range(2)]
+        nodes = [remote.KCVSServer(sqlitekv.SqliteStoreManager(d)).start()
+                 for d in dirs]
+        try:
+            g = _open(which, {
+                "storage.backend": "remote-cluster",
+                "storage.hostname": [f"127.0.0.1:{n.port}" for n in nodes],
+                "storage.cluster.replication-factor": 2,
+                "storage.lock.wait-time": 5,
+                "ids.authority.wait-time": 5}, seed=3)
+            try:
+                vids = run_ops(g, which, 3)
+            finally:
+                g.close()
+        finally:
+            for n in nodes:
+                n.stop()
+        got[which] = (vids, [sorted((k, c, cluster._unwrap(v)[2])
+                                    for k, c, v, _ in table_rows(d,
+                                                                 "edgestore"))
+                             for d in dirs])
+    assert got["port"] == got["jax"]
+    assert got["port"][1][0] == got["port"][1][1] != []
 
 
 # -- the change-log processors ----------------------------------------------

@@ -184,12 +184,48 @@ def test_listeners_are_held_weakly():
         g.close()
 
 
-@pytest.mark.parametrize("backend", ["gdbm", "remote-cluster"])
+@pytest.mark.parametrize("backend", ["gdbm"])
 def test_other_stores_name_their_roadmap_item(backend):
-    """``remote`` mounts a storage node (tests/test_torch_remote.py)."""
+    """``remote`` mounts a storage node (tests/test_torch_remote.py),
+    ``remote-cluster`` a ring of them (tests/test_torch_cluster.py)."""
     with pytest.raises(NotImplementedError, match="item 11"):
         titan_tpu_torch.open({"storage.backend": backend,
                               "storage.directory": "unused"})
+
+
+def test_remote_cluster_opens_and_equals_jax():
+    """``storage.backend: remote-cluster`` over two storage nodes at
+    replication 2: twin graphs give the same ids and the same unwrapped
+    edgestore rows."""
+    import importlib
+    got = {}
+    for which in PKGS:
+        root = PKGS[which][0].__name__
+        server = importlib.import_module(f"{root}.storage.remote").KCVSServer
+        mem = importlib.import_module(
+            f"{root}.storage.inmemory").InMemoryStoreManager
+        api = importlib.import_module(f"{root}.storage.api")
+        nodes = [server(mem()).start() for _ in range(2)]
+        try:
+            g = open_twin(which, config={
+                "storage.backend": "remote-cluster",
+                "storage.hostname": [f"127.0.0.1:{n.port}" for n in nodes],
+                "storage.cluster.replication-factor": 2,
+                "storage.lock.wait-time": 5, "ids.authority.wait-time": 5})
+            try:
+                res = run_ops(g, which, 1)
+                txh = g.backend.manager.begin_transaction()
+                rows = sorted((k, [(e.column, e.value) for e in es])
+                              for k, es in g.backend.edge_store.store
+                              .get_keys(api.SliceQuery(), txh))
+            finally:
+                g.close()
+        finally:
+            for n in nodes:
+                n.stop()
+        got[which] = (res["vids"], res["rel_ids"], rows)
+    assert got["port"] == got["jax"]
+    assert len(got["port"][2]) > 0
 
 
 def test_sqlite_store_keeps_commits_across_a_reopen(tmp_path):
@@ -209,8 +245,10 @@ def test_sqlite_store_keeps_commits_across_a_reopen(tmp_path):
 
 
 @pytest.mark.parametrize("config", [
-    {"metrics.enabled": True}, {"index.search.backend": "memindex"}])
+    {"metrics.enabled": True}, {"storage.backend": "gdbm"}])
 def test_refused_options_name_their_roadmap_item(config):
+    """``index.<name>.backend`` opens its provider now
+    (``test_formerly_refused_calls_equal_jax``)."""
     with pytest.raises(NotImplementedError, match="item 11"):
         titan_tpu_torch.open({"storage.backend": "inmemory", **config})
 
@@ -261,14 +299,8 @@ def test_query_and_traversal_entries_answer_as_jax(twins, entry):
     assert got > 0
 
 
-@pytest.mark.parametrize("call", [
-    lambda g: g.index_query("ix", "x"), lambda g: g.index_provider("s"),
-    lambda g: g.compute(backend="host"), lambda g: g.compute(backend="tpu"),
-    lambda g: g.management().build_index("m").add_key("k")
-    .build_mixed_index("search"),
-    lambda g: g.management().update_index("ci", "reindex")],
-    ids=["index_query", "index_provider", "host", "tpu",
-         "mixed_index", "reindex"])
+@pytest.mark.parametrize("call", [lambda g: g.compute(backend="tpu")],
+                         ids=["tpu"])
 def test_refused_methods_name_their_roadmap_item(call):
     g = titan_tpu_torch.open("inmemory")
     try:
@@ -281,6 +313,69 @@ def test_refused_methods_name_their_roadmap_item(call):
     finally:
         g.close()
 
+
+#: the calls that once raised, each on a twin graph with a key
+#: ``k``, a composite index ``ci`` and a ``search`` provider; what each
+#: returns in a package-free form
+FORMERLY_REFUSED = {
+    "index_query": lambda g, which: [
+        (el.id, s) for el, s in g.index_query("m", "k:hello")],
+    "index_provider": lambda g, which: (
+        type(g.index_provider("search")).__name__,
+        g.index_provider("search").features.supports_raw_query,
+        type(g.index_provider("other")).__name__),
+    "host": lambda g, which: sorted(
+        (vid, st.get("n")) for vid, st in g.compute(backend="host").run(
+            _count_program(which), max_iterations=3).states.items()),
+    "mixed_index": lambda g, which: (
+        lambda ix: (ix.name, ix.composite, ix.backing, ix.status.value,
+                    ix.key_params))(g.schema.get_by_name("m")),
+    "reindex": lambda g, which: (
+        g.management().update_index("late", "reindex").status.value,
+        sorted(v.id for v in g.new_transaction().query().has(
+            "j", "b1").vertices())),
+}
+
+
+def _count_program(which):
+    api = __import__(f"{PKGS[which][0].__name__}.olap.api",
+                     fromlist=["VertexProgram"])
+
+    class Count(api.VertexProgram):
+        def execute(self, vertex, messenger, memory):
+            vertex.set_state("n", memory.iteration + 1)
+
+        def terminate(self, memory):
+            return memory.iteration >= 1
+    return Count()
+
+
+@pytest.mark.parametrize("name", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_calls_equal_jax(name):
+    got = {}
+    for which in ("jax", "port"):
+        g = open_twin(which, config={"storage.backend": "inmemory",
+                                     "index.search.backend": "memindex"})
+        try:
+            m = g.management()
+            m.make_property_key("k", str)
+            m.make_property_key("j", str)
+            m.build_index("ci").add_key("k").build_composite_index()
+            m.build_index("m").add_key("k", "TEXT") \
+                .build_mixed_index("search")
+            m.commit()
+            tx = g.new_transaction()
+            for i in range(4):
+                tx.add_vertex("node", k=f"hello {i}", j=f"b{i}")
+            tx.commit()
+            m = g.management()
+            m.build_index("late").add_key("j").build_composite_index()
+            m.update_index("late", "register")
+            got[which] = FORMERLY_REFUSED[name](g, which)
+        finally:
+            g.close()
+    assert got["port"] == got["jax"]
+    assert got["port"] not in ([], None)
 
 def test_open_log_processors_returns_the_framework():
     """tests/test_torch_sqlite_wal.py holds the processors to JAX's."""

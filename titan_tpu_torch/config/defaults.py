@@ -314,7 +314,7 @@ METRICS_GRAPHITE_PORT = ConfigOption(
 COMPUTER_NS = ConfigNamespace(ROOT, "computer", "OLAP graph computer")
 COMPUTER_BACKEND = ConfigOption(
     COMPUTER_NS, "backend", "graph computer: gpu (the superstep engine on "
-    "one card); host and tpu are not ported", str, "gpu",
+    "one card) or host (thread-pool host executor); tpu is not ported", str, "gpu",
     Mutability.MASKABLE, one_of("host", "tpu", "gpu"))
 COMPUTER_THREADS = ConfigOption(
     COMPUTER_NS, "threads", "host computer worker threads (0 = n_cpus)", int,

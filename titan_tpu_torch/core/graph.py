@@ -5,12 +5,13 @@ opens the Backend, builds serializers/caches/id-assigner, registers the
 instance, and hosts the commit path that turns a transaction's deltas into
 batched per-row store mutations.)
 
-The port's copy of ``titan_tpu/core/graph.py``. What the port leaves out
-raises ``NotImplementedError`` naming ROADMAP queue 1, item 11
-(``errors.not_ported``): ``index_query()``, mixed-index providers and
-``metrics.enabled``. ``traversal()`` is the port's dsl and ``query()``
-its graph-centric query; ``compute()`` runs the port's
-``GPUGraphComputer``.
+The port's copy of ``titan_tpu/core/graph.py``. ``metrics.enabled`` raises
+``NotImplementedError`` naming ROADMAP queue 1, item 11
+(``errors.not_ported``). ``traversal()`` is the port's dsl and ``query()``
+its graph-centric query; ``compute()`` runs the port's ``GPUGraphComputer``
+(``backend="gpu"``, the default) or ``HostGraphComputer``
+(``backend="host"``); the mixed-index providers are the port's
+``memindex``, ``lucene``/``fts`` and ``remote-index``.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from titan_tpu_torch.config import (Configuration, MapConfiguration, defaults as
 from titan_tpu_torch.core.defs import Direction, RelationCategory
 from titan_tpu_torch.core.schema import SchemaManager
 from titan_tpu_torch.core.tx import GraphTransaction
-from titan_tpu_torch.errors import TitanError, not_ported
+from titan_tpu_torch.errors import (ConfigurationError, TitanError,
+                                    refuse_foreign)
 from titan_tpu_torch.ids import IDManager
 from titan_tpu_torch.ids.assigner import IDAssigner
 from titan_tpu_torch.storage.api import Entry
@@ -125,10 +127,57 @@ class StandardGraph:
     # -- mixed index providers ----------------------------------------------
 
     def _open_index_provider(self, name: str):
-        raise not_ported(f"the mixed-index provider index.{name}")
+        from titan_tpu_torch.config import defaults as d
+        backend = self.config.get(d.INDEX_BACKEND, name)
+        directory = self.config.get(d.INDEX_DIRECTORY, name)
+        if backend in ("lucene", "fts"):
+            # embedded persistent full-text engine (the Lucene-role provider)
+            from titan_tpu_torch.indexing.ftsindex import FTSIndex
+            provider = FTSIndex(name, directory or None)
+        elif backend == "remote-index":
+            # networked index node (the ES/Solr role)
+            from titan_tpu_torch.indexing.remote import RemoteIndexProvider
+            hosts = self.config.get(d.INDEX_HOSTNAME, name) or []
+            provider = RemoteIndexProvider(
+                name, hostname=hosts[0] if hosts else "127.0.0.1",
+                port=self.config.get(d.INDEX_PORT, name) or 8284)
+        elif backend in ("elasticsearch", "solr"):
+            # honesty over convenience: these names promise a CLUSTER
+            # index (reference: StandardIndexProvider maps them to real
+            # providers) — silently handing back the in-process
+            # MemoryIndex would give a user a non-durable per-process
+            # index while they believe they attached a cluster
+            raise ConfigurationError(
+                f"index.{name}.backend={backend!r} names a cluster index "
+                "this build does not embed; use backend=remote-index "
+                "pointing at a `python -m titan_tpu_torch.indexing.remote` "
+                "node (the ES/Solr-role networked provider), "
+                "backend=lucene for the embedded full-text engine, or "
+                "backend=memindex for an explicit in-process index")
+        elif backend == "memindex":
+            from titan_tpu_torch.indexing.memindex import MemoryIndex
+            provider = MemoryIndex(name, directory or None)
+        else:
+            import importlib
+            refuse_foreign(backend, f"index.{name}.backend")
+            mod, _, cls = backend.rpartition(".")
+            provider = getattr(importlib.import_module(mod), cls)(
+                name, directory or None)
+        self._index_providers[name] = provider
+        return provider
 
     def index_provider(self, name: str):
-        raise not_ported(f"the mixed-index provider {name!r}")
+        """Provider by config name; opens on demand so an index built before
+        the provider was configured still resolves."""
+        p = self._index_providers.get(name)
+        if p is None and name:
+            try:
+                p = self._open_index_provider(name)
+            except ConfigurationError:
+                raise          # misconfiguration must not degrade to None
+            except Exception:
+                return None
+        return p
 
     # -- transactions --------------------------------------------------------
 
@@ -180,8 +229,33 @@ class StandardGraph:
 
     def index_query(self, index_name: str, raw: str, limit=None, offset=0):
         """Direct native query against a mixed index (reference:
-        TitanGraph.indexQuery → IndexQueryBuilder)."""
-        raise not_ported("index_query() (mixed-index providers)")
+        TitanGraph.indexQuery → IndexQueryBuilder). Yields (element, score)."""
+        from titan_tpu_torch.core.schema import IndexDefinition
+        from titan_tpu_torch.indexing.provider import RawQuery
+        st = self.schema.get_by_name(index_name)
+        if not isinstance(st, IndexDefinition) or st.composite:
+            raise TitanError(f"{index_name!r} is not a mixed index")
+        provider = self.index_provider(st.backing)
+        if provider is None:
+            raise TitanError(f"provider {st.backing!r} not configured")
+        tx = self.tx()
+        out = []
+        hits = provider.raw_query(index_name,
+                                  RawQuery(raw, limit=limit, offset=offset))
+        if st.element == "vertex":
+            for docid, score in hits:
+                el = tx.vertex(self.index_serializer.element_id_of(docid))
+                if el is not None:
+                    out.append((el, score))
+            return out
+        from titan_tpu_torch.query.graphquery import GraphQuery
+        eids = [self.index_serializer.element_id_of(d) for d, _ in hits]
+        rel_map = GraphQuery(tx)._edges_by_rel_ids(set(eids))
+        for (docid, score), eid in zip(hits, eids):
+            el = rel_map.get(eid)
+            if el is not None:
+                out.append((el, score))
+        return out
 
     def commit(self):
         cur = getattr(self._tlocal, "tx", None)
@@ -546,11 +620,18 @@ class StandardGraph:
         except Exception:
             pass
         self.id_assigner.close()
+        for provider in self._index_providers.values():
+            try:
+                provider.close()
+            except Exception:
+                pass
         self.backend.close()
 
     def clear(self) -> None:
         """Drop all data (test helper; reference: TitanCleanup)."""
         self.backend.clear_storage()
+        for provider in self._index_providers.values():
+            provider.clear_storage()
         self.schema.expire()
 
     def __enter__(self):

@@ -160,15 +160,19 @@ class ManagementSystem:
                 f"cannot {action.value} index {idx.name!r} from status "
                 f"{idx.status.value}")
 
+        from titan_tpu_torch.indexing import jobs as index_jobs
         if action is SchemaAction.REGISTER_INDEX:
             return self._set_index_status(idx, SchemaStatus.REGISTERED)
         if action is SchemaAction.ENABLE_INDEX:
             return self._set_index_status(idx, SchemaStatus.ENABLED)
         if action is SchemaAction.DISABLE_INDEX:
             return self._set_index_status(idx, SchemaStatus.DISABLED)
-        if action in (SchemaAction.REINDEX, SchemaAction.REMOVE_INDEX):
-            from titan_tpu_torch.errors import not_ported
-            raise not_ported(f"{action.value} (indexing/jobs.py)")
+        if action is SchemaAction.REINDEX:
+            index_jobs.reindex(self.graph, idx, num_threads)
+            return self._set_index_status(idx, SchemaStatus.ENABLED)
+        if action is SchemaAction.REMOVE_INDEX:
+            index_jobs.remove_index_data(self.graph, idx, num_threads)
+            return idx
 
     def _set_index_status(self, idx, status):
         import dataclasses

@@ -81,10 +81,27 @@ class TransactionClosedError(TitanError):
 
 
 def not_ported(what: str) -> NotImplementedError:
-    """The error raised for a part of the OLTP layer that the port leaves
-    out: the gdbm and remote stores, mixed-index providers,
-    ``metrics.enabled`` and the host computer (ROADMAP queue 1, item
-    11)."""
+    """The error raised for a part of the JAX package that the port leaves
+    out: the ``gdbm`` store, ``metrics.enabled`` (instrumented stores and
+    metric reporters), ``deploy.py``, ``io.py``, ``config/docgen.py`` and
+    the ``tpu`` computer (ROADMAP queue 1, item 11)."""
     return NotImplementedError(
         f"{what} is not ported (ROADMAP queue 1, item 11: the OLTP "
         "remainder)")
+
+
+#: top-level packages the port never imports, not even by a name it is
+#: given at run time (a scan-job factory, an index backend, a store path)
+FOREIGN_PACKAGES = ("titan_tpu", "jax", "jaxlib")
+
+
+def refuse_foreign(path: str, what: str) -> None:
+    """Raise ``ValueError`` before any import when ``path`` (dotted, or
+    ``module:callable``) names a module of the JAX package or of JAX: a
+    job spec or a config written for the JAX package fails as a fault of
+    the job, never by loading JAX into the port's process."""
+    top = path.split(":", 1)[0].split(".", 1)[0]
+    if top in FOREIGN_PACKAGES:
+        raise ValueError(
+            f"{what} {path!r} is under {top!r}, which titan_tpu_torch never "
+            "imports; name its titan_tpu_torch counterpart")

@@ -7,22 +7,17 @@ by time and carrying a Geoshape battle place, lives carrying a reason, a
 composite (optionally unique) name index, and optional mixed indexes on
 vertex age and edge reason+place.)
 
-The port's copy of ``titan_tpu/example.py``. The port builds no mixed
-index, so ``mixed_index_name=`` raises ``NotImplementedError`` (ROADMAP
-queue 1, item 11).
+The port's copy of ``titan_tpu/example.py``.
 """
 
 from __future__ import annotations
 
 from titan_tpu_torch.core.attribute import Geoshape
 from titan_tpu_torch.core.defs import Multiplicity
-from titan_tpu_torch.errors import not_ported
 
 
 def load(graph, batch: bool = False, mixed_index_name=None,
          unique_name_index: bool = False):
-    if mixed_index_name:
-        raise not_ported(f"the mixed index of {mixed_index_name!r}")
     schema = graph.schema
     mgmt = graph.management()
     name = schema.get_by_name("name") or mgmt.make_property_key("name", str)
@@ -48,6 +43,14 @@ def load(graph, batch: bool = False, mixed_index_name=None,
             b.unique()
         b.build_composite_index()
         activate("name_idx")
+    if mixed_index_name and schema.get_by_name("vertices") is None:
+        mgmt.build_index("vertices", "vertex").add_key(age) \
+            .build_mixed_index(mixed_index_name)
+        activate("vertices")
+    if mixed_index_name and schema.get_by_name("edges") is None:
+        mgmt.build_index("edges", "edge").add_key(reason).add_key(place) \
+            .build_mixed_index(mixed_index_name)
+        activate("edges")
     mgmt.commit()
 
     schema.get_by_name("father") or schema.make_edge_label(

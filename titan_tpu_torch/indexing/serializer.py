@@ -289,8 +289,12 @@ class IndexSerializer:
     def register_keys(self, provider, index: IndexDefinition) -> None:
         """Replay a mixed index's field registrations onto its provider
         (used at build time and when reindexing on a fresh provider)."""
-        from titan_tpu_torch.errors import not_ported
-        raise not_ported("mixed-index providers (indexing/provider.py)")
+        from titan_tpu_torch.indexing.provider import KeyInformation
+        for kid, param in zip(index.key_ids, index.key_params):
+            pk = self.schema.get_type(kid)
+            provider.register(index.name, pk.name, KeyInformation(
+                pk.dtype, pk.cardinality,
+                (param,) if param != "DEFAULT" else ()))
 
     # -- composite query ------------------------------------------------------
 

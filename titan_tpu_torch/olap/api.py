@@ -1,15 +1,129 @@
-"""The vertex-program contract of the engine (port of ``DenseProgram``,
-``DenseMapReduce`` and the classic ``MapReduce`` stage with its emitters
-and ``execute_map_reduce`` in ``titan_tpu/olap/api.py``), and the job
-description of the serving layer (``EdgeData``, ``JobSpec``). The dense
-callbacks take and return torch tensors; a classic stage maps host
-vertex views."""
+"""The OLAP contracts (port of ``titan_tpu/olap/api.py``): the scan
+framework's ``ScanMetrics``/``ScanJob``/``VertexScanJob`` (run by
+``storage/scan.py``), the host computer's ``Memory``/``Messenger``/
+``VertexProgram`` (``olap/computer.py``), the vertex-program contract of
+the engine (``DenseProgram``, ``DenseMapReduce`` and the classic
+``MapReduce`` stage with its emitters and ``execute_map_reduce``), and
+the job description of the serving layer (``EdgeData``, ``JobSpec``).
+The dense callbacks take and return torch tensors; a classic stage maps
+host vertex views."""
 
 from __future__ import annotations
 
 import abc
 from dataclasses import dataclass, field
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
+
+
+class ScanMetrics:
+    """(reference: scan/ScanMetrics.java) simple thread-safe counters."""
+
+    def __init__(self):
+        import threading
+        self._lock = threading.Lock()
+        self._counts: dict[str, int] = {}
+
+    def increment(self, metric: str, delta: int = 1):
+        with self._lock:
+            self._counts[metric] = self._counts.get(metric, 0) + delta
+
+    def get(self, metric: str) -> int:
+        with self._lock:
+            return self._counts.get(metric, 0)
+
+    SUCCESS = "success"
+    FAILURE = "failure"
+
+
+class ScanJob(abc.ABC):
+    def setup(self, graph, config, metrics: ScanMetrics) -> None:
+        pass
+
+    def get_queries(self) -> Sequence:
+        """SliceQuery list; the FIRST is the primary query driving iteration
+        (reference: ScanJob.getQueries)."""
+        raise NotImplementedError
+
+    @abc.abstractmethod
+    def process(self, key: bytes, entries_by_query: dict, metrics: ScanMetrics
+                ) -> None:
+        """``entries_by_query``: SliceQuery -> EntryList for this row."""
+
+    def worker_iteration_start(self, config, metrics: ScanMetrics) -> None:
+        pass
+
+    def worker_iteration_end(self, metrics: ScanMetrics) -> None:
+        pass
+
+
+class VertexScanJob(abc.ABC):
+    def setup(self, graph, config, metrics: ScanMetrics) -> None:
+        pass
+
+    @abc.abstractmethod
+    def process(self, vertex, metrics: ScanMetrics) -> None: ...
+
+    def get_queries(self, query_container) -> None:
+        """Declare adjacency slices to preload via the QueryContainer."""
+
+
+class Memory:
+    """Global BSP memory (reference: FulgoraMemory.java:131)."""
+
+    def __init__(self):
+        self._values: dict[str, Any] = {}
+        self.iteration = 0
+
+    def get(self, key: str, default=None):
+        return self._values.get(key, default)
+
+    def set(self, key: str, value):
+        self._values[key] = value
+
+    def add(self, key: str, value):
+        self._values[key] = self._values.get(key, 0) + value
+
+    def keys(self):
+        return list(self._values)
+
+
+class Messenger:
+    """Per-vertex message access during execute()."""
+
+    def __init__(self, vertex_memory, vertex_id: int):
+        self._vm = vertex_memory
+        self._vid = vertex_id
+
+    def receive(self) -> list:
+        return self._vm.messages_for(self._vid)
+
+    def send(self, message, target_ids) -> None:
+        for t in target_ids:
+            self._vm.send(t, message)
+
+
+class VertexProgram(abc.ABC):
+    """Host BSP program (reference: TinkerPop VertexProgram executed by
+    FulgoraGraphComputer.java:151-189)."""
+
+    def setup(self, memory: Memory) -> None:
+        pass
+
+    @abc.abstractmethod
+    def execute(self, vertex, messenger: Messenger, memory: Memory) -> None: ...
+
+    @abc.abstractmethod
+    def terminate(self, memory: Memory) -> bool: ...
+
+    def combiner(self) -> Optional[Callable[[Any, Any], Any]]:
+        """Optional associative message combiner
+        (reference: MessageCombiner)."""
+        return None
+
+    @property
+    def state_keys(self) -> Sequence[str]:
+        """Vertex state property names this program writes."""
+        return ()
 
 
 class MapEmitter:

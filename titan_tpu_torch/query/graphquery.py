@@ -7,12 +7,9 @@ retrievals (QueryUtil.processIntersectingRetrievals), and finally full-scan
 with a warning (StandardTitanTx.java:1260-1282). Results always re-filter
 against the full condition set and merge the transaction's own deltas.)
 
-The port's copy of ``titan_tpu/query/graphquery.py``. The composite cover
-goes through the port's ``indexing/serializer.query_composite``. The port
-builds no mixed index (``build_mixed_index`` is refused), so the mixed
-cover is reached only through a schema that holds one, and there the
-graph's ``index_provider`` raises ``NotImplementedError`` (ROADMAP queue
-1, item 11).
+The port's copy of ``titan_tpu/query/graphquery.py``: the composite cover
+goes through ``indexing/serializer.query_composite``, the mixed cover
+through the graph's ``index_provider`` (``indexing/``).
 """
 
 from __future__ import annotations
@@ -20,8 +17,9 @@ from __future__ import annotations
 import logging
 from typing import Any, Iterator, Optional
 
-from titan_tpu_torch.core.defs import Direction
-from titan_tpu_torch.core.schema import IndexDefinition
+from titan_tpu_torch.core.defs import Direction, RelationCategory
+from titan_tpu_torch.core.schema import IndexDefinition, PropertyKey
+from titan_tpu_torch.errors import TitanError
 from titan_tpu_torch.query.predicates import P
 
 log = logging.getLogger(__name__)
@@ -106,9 +104,20 @@ class GraphQuery:
                 p.annotate("hits", len(ids))
                 out = []
                 seen = set()
+                # mixed-edge hits carry only a relation id; resolve them all
+                # in ONE edge-store pass instead of one scan per hit
+                rel_ids = {h[1] for h in ids
+                           if isinstance(h, tuple) and len(h) == 2
+                           and h[0] == "rel"}
+                rel_map = self._edges_by_rel_ids(rel_ids) if rel_ids else {}
                 for eid in ids:
-                    el = tx.vertex(eid) if element == "vertex" \
-                        else self._edge_from_hit(eid)
+                    if element == "vertex":
+                        el = tx.vertex(eid)
+                    elif isinstance(eid, tuple) and len(eid) == 2 \
+                            and eid[0] == "rel":
+                        el = rel_map.get(eid[1])
+                    else:
+                        el = self._edge_from_hit(eid)
                     if el is None or el.id in seen:
                         continue
                     seen.add(el.id)
@@ -178,44 +187,86 @@ class GraphQuery:
                 continue
             if set(names) <= covered:
                 continue
-            retrievals.append((ix, tuple(eq_keys[n] for n in names)))
+            retrievals.append(("composite", ix,
+                               tuple(eq_keys[n] for n in names)))
             covered |= set(names)
 
-        # mixed cover for the remaining conditions: the port holds no
-        # mixed index of its own, and the graph's index_provider raises
-        # for one that a schema names
+        # mixed cover for the remaining conditions
         remaining = [(k, p) for k, p in self._conditions
                      if k not in covered and p.op not in ("exists", "absent")]
         if remaining:
+            graph = self.tx.graph
             for ix in candidates:
-                if not ix.composite:
-                    self.tx.graph.index_provider(ix.backing)
+                if ix.composite:
+                    continue
+                provider = graph.index_provider(ix.backing)
+                if provider is None:
+                    continue
+                names = {self.schema.get_type(k).name: (k, param)
+                         for k, param in zip(ix.key_ids, ix.key_params)}
+                cover = [(k, p) for k, p in remaining
+                         if k in names and provider.supports(
+                             self._keyinfo(*names[k]), p)]
+                if cover:
+                    retrievals.append(("mixed", ix, tuple(cover)))
+                    covered |= {k for k, _ in cover}
+                    remaining = [(k, p) for k, p in remaining
+                                 if k not in covered]
+                    if not remaining:
+                        break
 
         if not retrievals:
             return None
 
         # execute + intersect (reference: processIntersectingRetrievals);
-        # hits are normalized to {element id: payload}
+        # hits are normalized to {element id: payload} so composite-edge
+        # (4-tuple) and mixed-edge retrievals intersect correctly
         result: Optional[dict] = None
-        for ix, payload in retrievals:
-            hits = self._run_retrieval(ix, payload, element)
+        for kind, ix, payload in retrievals:
+            hits = self._run_retrieval(kind, ix, payload, element)
             if result is None:
                 result = hits
             else:
-                result = {k: result[k] for k in result.keys() & hits.keys()}
+                result = {k: self._prefer(result[k], hits[k])
+                          for k in result.keys() & hits.keys()}
             if not result:
                 break
         return [result[k] for k in sorted(result or ())]
 
-    def _run_retrieval(self, ix: IndexDefinition, payload,
+    @staticmethod
+    def _prefer(a, b):
+        """Keep the richer payload: a composite-edge 4-tuple reconstructs the
+        edge directly, a mixed ("rel", id) hit needs a scan."""
+        if isinstance(a, tuple) and len(a) == 4:
+            return a
+        return b if isinstance(b, tuple) and len(b) == 4 else a
+
+    def _keyinfo(self, key_id: int, param: str = "DEFAULT"):
+        from titan_tpu_torch.indexing.provider import KeyInformation
+        st = self.schema.get_type(key_id)
+        return KeyInformation(st.dtype, st.cardinality,
+                              (param,) if param != "DEFAULT" else ())
+
+    def _run_retrieval(self, kind: str, ix: IndexDefinition, payload,
                        element: str) -> dict:
-        """A composite retrieval -> {element id: payload} (the vertex id,
-        or the edge hit keyed by its relation id)."""
-        hits = self.tx.graph.index_serializer.query_composite(
-            self.tx.backend_tx, ix, payload)
+        """→ {element id: payload} (vertex id, or relation id → edge hit)."""
+        graph = self.tx.graph
+        if kind == "composite":
+            hits = graph.index_serializer.query_composite(
+                self.tx.backend_tx, ix, payload)
+            if element == "vertex":
+                return {h: h for h in hits}
+            return {h[0]: h for h in hits}
+        from titan_tpu_torch.indexing.provider import (And, FieldCondition,
+                                                       IndexQuery)
+        cond = And(tuple(FieldCondition(k, p) for k, p in payload))
+        itx = self.tx.backend_tx.index_txs.get(ix.backing)
+        provider = graph.index_provider(ix.backing)
+        docids = (itx or provider).query(ix.name, IndexQuery(cond))
+        ser = graph.index_serializer
         if element == "vertex":
-            return {h: h for h in hits}
-        return {h[0]: h for h in hits}
+            return {(eid := ser.element_id_of(d)): eid for d in docids}
+        return {(rid := ser.element_id_of(d)): ("rel", rid) for d in docids}
 
     # -- fallbacks / reconstruction ------------------------------------------
 
@@ -237,9 +288,11 @@ class GraphQuery:
                         yield e
 
     def _edge_from_hit(self, hit):
-        """Rebuild an Edge from a composite index hit (rel_id, out, in,
-        type)."""
+        """Rebuild an Edge from an index hit: (rel_id, out, in, type) from a
+        composite index, or ("rel", rel_id) from a mixed one."""
         tx = self.tx
+        if isinstance(hit, tuple) and hit and hit[0] == "rel":
+            return self._edges_by_rel_ids({hit[1]}).get(hit[1])
         rel_id, out_vid, in_vid, type_id = hit
         if rel_id in tx._deleted:
             return None
@@ -250,6 +303,22 @@ class GraphQuery:
             if e.id == rel_id:
                 return e
         return None
+
+    def _edges_by_rel_ids(self, rel_ids: set) -> dict:
+        """Resolve relation ids to Edges with one pass over the edge store
+        (mixed edge indexes key documents by relation id only)."""
+        tx = self.tx
+        wanted = {r for r in rel_ids if r not in tx._deleted}
+        found: dict = {}
+        if not wanted:
+            return found
+        for v in tx.vertices():
+            for e in v.edges(Direction.OUT):
+                if e.id in wanted:
+                    found[e.id] = e
+                    if len(found) == len(wanted):
+                        return found
+        return found
 
     def _tx_delta(self, element: str) -> Iterator:
         """Elements the committed indexes can't see: created in this tx OR

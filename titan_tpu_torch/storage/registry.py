@@ -4,9 +4,11 @@
 Backend.getStorageManager Backend.java:406-414 — shorthand → implementation
 map with reflective fallback to an import path.)
 
-The port's copy registers ``inmemory``, ``sqlite`` and ``remote`` (one
-storage node, ``storage/remote.py``); ``gdbm`` and ``remote-cluster``
-raise ``NotImplementedError`` naming ROADMAP queue 1, item 11.
+The port's copy registers ``inmemory``, ``sqlite``, ``remote`` (one
+storage node, ``storage/remote.py``) and ``remote-cluster`` (storage
+nodes behind a hash ring, ``storage/cluster.py``); ``gdbm`` raises
+``NotImplementedError`` naming ROADMAP queue 1, item 11. An import path
+under the JAX package or JAX is refused before any import.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import importlib
 from typing import Callable
 
-from titan_tpu_torch.errors import not_ported
+from titan_tpu_torch.errors import not_ported, refuse_foreign
 
 _STORE_FACTORIES: dict[str, Callable] = {}
 
@@ -28,6 +30,7 @@ def store_manager(shorthand: str, **kwargs):
     if factory is not None:
         return factory(**kwargs)
     if "." in shorthand:  # import path "pkg.mod.Class"
+        refuse_foreign(shorthand, "storage.backend")
         mod, _, cls = shorthand.rpartition(".")
         ctor = getattr(importlib.import_module(mod), cls)
         # plugins only receive the kwargs their constructor declares (the
@@ -64,6 +67,26 @@ def _remote(hostname=None, port=None, timeout=None, **kw):
                               timeout=float(timeout or 30.0))
 
 
+def _remote_cluster(hostname=None, port=None, replication=None,
+                    write_consistency=None, virtual_nodes=None,
+                    read_repair=None, max_hints_per_peer=None,
+                    timeout=None, **kw):
+    from titan_tpu_torch.storage.cluster import (MAX_HINTS_PER_PEER,
+                                                 ClusterStoreManager)
+    hosts = hostname if isinstance(hostname, (list, tuple)) \
+        else ([hostname] if hostname else [])
+    return ClusterStoreManager(list(hosts), int(port or 8283),
+                               int(replication or 1),
+                               write_consistency or "all",
+                               int(virtual_nodes or 64),
+                               timeout=float(timeout or 30.0),
+                               read_repair=(0.1 if read_repair is None
+                                            else float(read_repair)),
+                               max_hints_per_peer=int(
+                                   max_hints_per_peer
+                                   or MAX_HINTS_PER_PEER))
+
+
 def _not_ported(shorthand: str):
     def refuse(**kw):
         raise not_ported(f"storage.backend={shorthand!r}")
@@ -73,5 +96,5 @@ def _not_ported(shorthand: str):
 register_store("inmemory", _inmemory)
 register_store("sqlite", _sqlite)
 register_store("remote", _remote)
-for _name in ("gdbm", "remote-cluster"):
-    register_store(_name, _not_ported(_name))
+register_store("remote-cluster", _remote_cluster)
+register_store("gdbm", _not_ported("gdbm"))

@@ -7,7 +7,8 @@ Phases, each of which raises on failure:
 
 1. print the card's name and power limit; build the kernels from the
    sources in the checkout (``nvcc`` for ``csrc/frontier_round.cu``,
-   ``csrc/batched_exhaust.cu`` and ``csrc/seg_scan.cu``, ``g++`` for the
+   ``csrc/batched_exhaust.cu``, ``csrc/seg_scan.cu`` and
+   ``csrc/bfs_fused.cu``, ``g++`` for the
    native host library: the Graph500 pipeline and the store scan's
    codec), all at once, and print each kernel's ptxas
    registers, shared memory and spills; start the host builds of the two
@@ -48,6 +49,9 @@ Phases, each of which raises on failure:
    K = 16 launches bit-equal to the first;
 4. at Graph500 scale 16, the port's BFS on the card equals the port's
    BFS on the CPU (plain path), and ``frontier_round`` was launched;
+   4b: the fused BFS kernel bit-equal to its plain version on the card
+   (dist, levels and modes) and to ``frontier_bfs_hybrid``, with the
+   endgame caps JAX's and 1, and cut by ``max_levels`` 1-3;
 5. the vertex-program engine's main path at Graph500 scale 22, edge
    factor 16 (the JAX package's LiveJournal-class PageRank graph):
    ``from_chunked_csr``, upload, then PageRank (alpha 0.85, 20
@@ -81,7 +85,18 @@ Phases, each of which raises on failure:
    time the kernel against its plain version and its bound: the widest
    (the first of the largest C) and the one whose bound bytes are
    largest (``round_bytes``: the smaller of the ``[8, Q]`` and ``[Q, 8]``
-   counts of the dstT sectors);
+   counts of the dstT sectors). 6b: the single-launch BFS
+   (``models/bfs_hybrid_fused``, ``csrc/bfs_fused.cu``) from the same
+   sources, best of 3, one cooperative launch a BFS, each ``dist``
+   bit-equal to phase 6's validated result and to the plain fused
+   version on the card, whose ``levels`` it equals (printed beside the
+   hybrid's); each source's wall, TEPS and their harmonic mean beside
+   phase 6's, the kernel's ms against its byte bound (``fused_bytes``:
+   the dstT chunks and ``dist`` sectors that each level's decision must
+   read, a bottom-up vertex's chunks up to its first parent) and the
+   plain version's. (The push BFS
+   at s26 is ``scripts/torch_push_s26.py``'s: its host out-CSR takes
+   longer than the smoke can spend.);
 7. the batched ``[K, n]`` BFS on phase 6's graph: the serving layer's
    BFS cohort (K = 16 sources by bench.py's rule; one warm-up, best of
    3, one traced run) with every row bit-equal to ``frontier_bfs_hybrid``
@@ -109,7 +124,12 @@ Phases, each of which raises on failure:
    bench.py's SSSP source (the first vertex of degree > 0), checked by
    its edges (``check_sssp``); ``frontier_wcc`` equal to scipy's
    components; the K = 4 SSSP cohort, every row and round count
-   bit-equal to its solo run;
+   bit-equal to its solo run. 8b, on phase 5's snapshot: the
+   push-frontier BFS (``models/bfs``: ``frontier_bfs``,
+   ``frontier_bfs_tiled`` with its defaults and with 2^25 edges a shard,
+   4 shards or more) from bench.py's first source, each ``dist`` equal
+   to ``frontier_bfs_hybrid``'s, walls and levels; then the fused
+   kernel against its plain version on the card from that source;
 9. bench.py's ``sssp_wcc`` stage on phase 6's scale-26 graph: one
    ``frontier_sssp`` with ``_trace_rounds`` and ``_trace_plan_drain``
    set (seconds, rounds, plan seconds a round, each round's plan and
@@ -299,10 +319,19 @@ Phases, each of which raises on failure:
    each REGISTER, REINDEX over (a)'s workers, ENABLE, then an
    ``index_query`` and a ``textPrefix`` graph query on the mixed cover
    (the profiler's groups) equal to a full scan, then DISABLE; (e) each
-   step's wall on the host clock. Phases 16 and 17 must end within 60 s.
+   step's wall on the host clock. Phases 16 and 17 must end within 60 s;
+18. the OLTP remainder on the card's host, with phase 14b's 2,000-vertex
+   property graph: written with ``write_graphbin`` and
+   ``write_graphson``, each read back into a ``gdbm`` graph equal to it;
+   ``graph.compute()`` PageRank (within ``PAGERANK_RTOL`` of float64)
+   and BFS (equal to a host BFS over the edges read back) on the card
+   over the gdbm graph, its ``seg_scan`` launches
+   ``launches_by_path["gdbm"]``; a ``metrics.enabled`` gdbm graph whose
+   store counters count and whose CSV reporter writes; ``deploy`` start,
+   status and stop of a storage node and a scan worker. Within 60 s.
 
 The line before the last is the ``{"kernels": [...]}`` record of the
-three kernels (each record's ``launches`` sums its paths, listed under
+four kernels (each record's ``launches`` sums its paths, listed under
 ``launches_by_path``; ``seg_scan``'s ``rows`` holds phase 5b's two
 K-row replays); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
@@ -343,6 +372,11 @@ SEG_KERNEL = {"name": "seg_scan", "route": "cuda",
 EXHAUST_KERNEL = {"name": "batched_exhaust", "route": "cuda",
                   "source": "titan_tpu_torch/csrc/batched_exhaust.cu",
                   "replaces": "titan_tpu/models/bfs_hybrid.py:1070"}
+#: the single-launch BFS: the port's own kernel; its JAX counterpart is
+#: the XLA program of bfs_hybrid_fused.py (one lax.while_loop), not Pallas
+FUSED_KERNEL = {"name": "bfs_fused", "route": "cuda",
+                "source": "titan_tpu_torch/csrc/bfs_fused.cu",
+                "replaces": "titan_tpu/models/bfs_hybrid_fused.py:311"}
 #: float32 sums: |kernel - plain| <= FLOAT_SUM_RTOL * (the scan of |x|).
 #: The kernel adds in tile order (16 in a thread, a warp tree, a block
 #: tree: about 27 adds inside a tile, then the carry, a left fold with one
@@ -1000,6 +1034,235 @@ def phase_small(F, P, G) -> None:
     for k, v in default.items():
         setattr(P, k, v)
     check(launches > 0, "the CUDA BFS never launched frontier_round")
+
+
+def fused_plain(PF, g, src: int, max_levels: int = 1000) -> tuple:
+    """The plain fused BFS on ``g``'s device: ``(dist [n+2], levels,
+    trace)``, the trace ``(level, mode, chunks gathered)`` a decision."""
+    g["_trace_modes"] = trace = []
+    try:
+        dist, levels = PF.fused_bfs_reference(g, src, max_levels)
+    finally:
+        del g["_trace_modes"]
+    return dist, levels, trace
+
+
+def _first_hit_chunks(PF, g, dist, found, level: int,
+                      rounds: int = 8) -> int:
+    """Chunk columns that bottom-up vertices ``found`` (int64, each with a
+    parent at ``level``) read up to and including the first that holds
+    such a parent, walking their chunks in order."""
+    dstT, colstart, degc = g["dstT"], g["colstart"], g["degc"]
+
+    def hits(cols):
+        return torch.cat([(dist[dstT[:, cols[i:i + PF.SLICE]].long()]
+                           == level).any(dim=0)
+                          for i in range(0, cols.numel(), PF.SLICE)])
+
+    # most parents sit in the first few chunks: ``rounds`` of those a
+    # chunk at a time, then every remaining chunk of the rest at once,
+    # keeping the first hit's index (the count does not depend on rounds)
+    chunks, todo, r = 0, found, 0
+    while todo.numel() and r < rounds:
+        hit = hits(colstart[todo].long() + r)
+        chunks += (r + 1) * int(hit.sum())
+        todo, r = todo[~hit], r + 1
+    if todo.numel() == 0:
+        return chunks
+    rem = (degc[todo] - r).long()
+    big = torch.iinfo(torch.int64).max
+    for lo, hi in PF._slices(rem):
+        base = colstart[todo[lo:hi]].long()
+        cols, owner = PF._pairs(base + r, rem[lo:hi])
+        idx = cols - base[owner]
+        first = torch.full((hi - lo,), big, dtype=torch.int64,
+                           device=cols.device).scatter_reduce_(
+            0, owner, torch.where(hits(cols), idx, big), reduce="amin")
+        check(bool((first < big).all()), "fused_bytes: a vertex found "
+              f"at level {level + 1} has no parent at {level}")
+        chunks += int((first + 1).sum())
+    return chunks
+
+
+def fused_bytes(PF, g, dist, trace) -> dict:
+    """The fused BFS's byte bound, worked out from what the function
+    reads given its decisions (``trace``, the plain version's) and its
+    result (``dist``, validated): each top-down level reads 32 B of dstT
+    for each chunk column of its frontier and one 32 B sector of ``dist``
+    for each distinct sector its neighbours fall in; each bottom-up
+    level, the endgame's included, writes the frontier's bitmap (n/8 B,
+    which L2 holds) and reads it once, and each candidate reads 32 B of
+    dstT a chunk up to and including the first that holds a parent, or
+    all its chunks where it has none; ``dist`` is written once,
+    ``colstart`` and ``degc`` read once. Returns the parts and their
+    ``total``; ``plain`` is what the plain version gathered, for
+    comparison."""
+    n = g["n"]
+    degc = g["degc"][:n].long()
+    d = dist[:n].long()
+    parts = {"dstT_td": 0, "dist_td": 0, "dstT_bu": 0, "bitmaps": 0}
+
+    def bottom_up(level):
+        cand = (d > level) & (degc > 0)
+        found = torch.nonzero(d == level + 1).flatten()
+        miss = cand & (d != level + 1)
+        parts["dstT_bu"] += 32 * (int(degc[miss].sum()) + _first_hit_chunks(
+            PF, g, dist, found, level))
+        parts["bitmaps"] += 2 * (-(-(n + 2) // 8))
+        return found.numel()
+
+    for level, mode, _ in trace:
+        if mode == "td":
+            fr = torch.nonzero(d == level).flatten()
+            counts = degc[fr]
+            parts["dstT_td"] += 32 * int(counts.sum())
+            seen = torch.zeros(n // 8 + 1, dtype=torch.bool,
+                               device=dist.device)
+            for lo, hi in PF._slices(counts):
+                cols, _ = PF._pairs(g["colstart"][fr[lo:hi]].long(),
+                                   counts[lo:hi])
+                nbr = g["dstT"][:, cols].reshape(-1).long()
+                seen[nbr[nbr < n] >> 3] = True
+            parts["dist_td"] += 32 * int(seen.sum())
+        elif mode == "bu":
+            bottom_up(level)
+        else:                    # bottom-up levels until one finds nothing
+            lvl = level
+            while bottom_up(lvl):
+                lvl += 1
+    parts["once"] = 4 * (n + 2) + 8 * (n + 1)
+    parts["total"] = sum(parts.values())
+    parts["plain"] = 32 * sum(c for _, _, c in trace) + parts["once"]
+    return parts
+
+
+def check_fused(PF, g, src: int, where: str, max_levels: int = 1000,
+                want=None) -> dict:
+    """The fused kernel against its plain version on the card, from one
+    source: dist over [0, n), levels and the modes bit for bit, one
+    launch. ``want``: a validated dist the kernel's must equal too."""
+    n = g["n"]
+    before = PF.fused_bfs.launches
+    g["_trace_modes"] = modes = []
+    try:
+        dk, lk = PF.fused_bfs(g, src, max_levels)
+    finally:
+        del g["_trace_modes"]
+    mk = [m for _, m, _ in modes]
+    check(PF.fused_bfs.launches == before + 1, f"{where}: the fused BFS "
+          f"launched {PF.fused_bfs.launches - before} times")
+    dp, lp, trace = fused_plain(PF, g, src, max_levels)
+    mp = [m for _, m, _ in trace]
+    err = int((dk[:n].long() - dp[:n].long()).abs().max())
+    check(torch.equal(dk[:n], dp[:n]) and lk == lp and mk == mp,
+          f"{where}: the fused kernel from {src} differs from its plain "
+          f"version (levels {lk} against {lp}, modes {mk} against {mp}, "
+          f"max |dist| difference {err})")
+    if want is not None:
+        check(torch.equal(dk[:n], want[:n]), f"{where}: the fused kernel "
+              f"from {src} differs from frontier_bfs_hybrid")
+    return {"levels": lk, "modes": mk, "trace": trace, "max_abs_err": err}
+
+
+def phase_fused_small(PF, P, G, card) -> None:
+    """Phase 4b at scale 16: the fused kernel against its plain version
+    on the card and against frontier_bfs_hybrid, with the JAX endgame
+    caps and with them at 1 (every level top-down or bottom-up), and
+    with max_levels cutting the search short."""
+    hg = G.load_or_build(SMALL_SCALE, EDGE_FACTOR, seed=SEED, verbose=False)
+    g = G.graph_from_numpy(hg, "cuda")
+    caps = (PF.END_C_CAP, PF.END_P_CAP)
+    seen, runs = set(), 0
+    try:
+        for forced in (False, True):
+            PF.END_C_CAP, PF.END_P_CAP = (1, 1) if forced else caps
+            for src in sample_sources(hg["deg"], 2):
+                want, _ = P.frontier_bfs_hybrid(g, src, return_device=True)
+                r = check_fused(PF, g, src, f"phase 4b s{SMALL_SCALE}",
+                                want=want)
+                seen.update(r["modes"])
+                runs += 1
+            for cut in (1, 2, 3):
+                r = check_fused(PF, g, src, f"phase 4b s{SMALL_SCALE} "
+                                f"max_levels={cut}", max_levels=cut)
+                check(r["levels"] <= cut, f"max_levels={cut} gave "
+                      f"{r['levels']} levels")
+                runs += 1
+    finally:
+        PF.END_C_CAP, PF.END_P_CAP = caps
+    check(seen >= {"endgame", "td", "bu"}, f"phase 4b took only {seen}")
+    say(f"phase 4b: s{SMALL_SCALE} fused BFS kernel bit-equal to its plain "
+        f"version on {card} in {runs} runs (dist, levels, modes; endgame "
+        f"caps JAX's and 1; max_levels 1-3) and to frontier_bfs_hybrid; "
+        f"modes {sorted(seen)}; one launch a BFS")
+
+
+def phase_fused_main(PF, G, g, hg, per_source, teps6, card) -> dict:
+    """Phase 6b on phase 6's scale-26 graph: the fused kernel from
+    bench.py's sources, each dist bit-equal to phase 6's validated
+    frontier_bfs_hybrid result and levels to the plain fused version's on
+    the card, one launch a BFS; the wall and TEPS a source; the kernel's
+    time against its byte bound and the plain version's."""
+    from titan_tpu_torch.device import INF
+
+    deg_orig = np.asarray(hg["deg_orig"])
+    deg_dev = G.device_degrees(deg_orig, "cuda")
+    n = g["n"]
+    PF.fused_bfs(g, per_source[0]["source"])                # warm-up
+    rows, bounds = [], []
+    PF.fused_bfs.launches = 0
+    # ---- the main path, with the kernel count from 0
+    for r in per_source:
+        src = r["source"]
+        best = None
+        for _ in range(REPS):
+            (dist, levels), t = wall_s(lambda: PF.fused_bfs(g, src))
+            if best is None or t < best[2]:
+                best = (dist, levels, t)
+        rows.append((src, *best))
+    launches = PF.fused_bfs.launches
+    # ---- end of the main path
+    check(launches == REPS * len(per_source), f"phase 6b: {launches} "
+          f"launches for {REPS * len(per_source)} BFS runs")
+    out, plain_ms, ms = [], [], []
+    for (src, dist, levels, t), r in zip(rows, per_source):
+        check(torch.equal(dist[:n], r["dist"][:n]), f"phase 6b: the fused "
+              f"kernel from {src} differs from phase 6's validated dist")
+        (dp, lp, trace), p_s = timed(lambda: fused_plain(PF, g, src))
+        check(torch.equal(dist[:n], dp[:n]) and levels == lp,
+              f"phase 6b: the fused kernel from {src} differs from its "
+              f"plain version (levels {levels} against {lp})")
+        m2, _ = G.reachable_edge_sum(dist[:n], deg_orig, INF,
+                                     deg_dev=deg_dev)
+        (_, _), k_s = timed(lambda: PF.fused_bfs(g, src))
+        parts = fused_bytes(PF, g, dist, trace)
+        nbytes = parts["total"]
+        bounds.append(nbytes / HBM_BYTES_PER_S * 1e3)
+        ms.append(k_s * 1e3)
+        plain_ms.append(p_s * 1e3)
+        out.append({"source": src, "levels": levels,
+                    "hybrid_levels": r["levels"],
+                    "modes": [m for _, m, _ in trace], "t_bfs": t,
+                    "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
+                    "bound_ms": bounds[-1], "bytes": parts,
+                    "m_traversed": m2 // 2, "teps": (m2 // 2) / t})
+        del dist, dp
+    teps = len(out) / sum(1.0 / o["teps"] for o in out)
+    say(f"phase 6b: fused BFS (one cooperative launch a BFS) at s{SCALE} on "
+        f"{card}: TEPS {teps:.6g} (harmonic mean over {len(out)} sources, "
+        f"best of {REPS}) against phase 6's {teps6:.6g}; dist bit-equal to "
+        f"phase 6's validated results and to the plain fused version, whose "
+        f"levels it equals; per source " + json.dumps(out))
+    del deg_dev
+    torch.cuda.empty_cache()
+    i = int(np.argmax(ms))
+    return {**FUSED_KERNEL, "launches": launches, "max_abs_err": 0,
+            "ms": ms[i], "plain_ms": plain_ms[i], "bound_ms": bounds[i],
+            "bound_by": "bytes", "library_ms": None,
+            "per_source": [{k: o[k] for k in (
+                "source", "levels", "hybrid_levels", "ms", "plain_ms",
+                "bound_ms", "bytes", "t_bfs", "teps")} for o in out],
+            "teps": teps}
 
 
 def timed(fn):
@@ -1938,12 +2201,13 @@ def phase_main(F, P, G, host_build, card) -> tuple:
           "a source's BFS runs launched frontier_round unequal times")
 
     for r in per_source:
-        validate(g, r.pop("dist"), r["source"], INF)
+        validate(g, r["dist"], r["source"], INF)
     teps = len(per_source) / sum(1.0 / r["teps"] for r in per_source)
     say(f"phase 6: Graph500 s{SCALE} ef{EDGE_FACTOR} on {card}: "
         f"TEPS {teps:.6g} (harmonic mean over {len(per_source)} "
         f"sources, best of {REPS}); per source "
-        + json.dumps(per_source))
+        + json.dumps([{k: v for k, v in r.items() if k != "dist"}
+                      for r in per_source]))
     say(f"phase 6: Graph500 validation passed for every source; "
         f"frontier_round launches {launches} over {runs} BFS runs "
         f"({per_call} a run, by source)")
@@ -1953,7 +2217,7 @@ def phase_main(F, P, G, host_build, card) -> tuple:
     for name, r in recs.items():
         say_replay(name, r)
     w = recs["widest"]
-    return g, hg, {**KERNEL, "launches": launches,
+    return g, hg, per_source, teps, {**KERNEL, "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in recs.values()),
             "ms": w["ms"], "plain_ms": w["plain_ms"],
             "bound_ms": w["bound_ms"], "bound_by": "bytes",
@@ -5482,6 +5746,252 @@ def phase_scan_cluster(card) -> dict:
     return walls
 
 
+# ---- phase 8b: the push-frontier BFS (models/bfs.py)
+
+def drop_push_caches(snap) -> None:
+    """The push-frontier BFS's device caches on ``snap``."""
+    for attr in ("_frontier_csr_by_device", "_tiled_shards_by_device",
+                 "_out_degree_by_device"):
+        setattr(snap, attr, {})
+
+
+def push_runs(PB, snap, src: int, want, shard_edges, where: str) -> list:
+    """frontier_bfs (when the edges fit int32), frontier_bfs_tiled with its
+    defaults, and with ``shard_edges`` a shard; each dist equal to
+    ``want`` (numpy); the second run of each is timed (the first uploads
+    and caches the out-CSR)."""
+    runs = []
+    calls = [("frontier_bfs_tiled", {})]
+    if snap.num_edges < (1 << 31):
+        calls.insert(0, ("frontier_bfs", {}))
+    if shard_edges is not None:
+        calls.append(("frontier_bfs_tiled", {"max_shard_edges": shard_edges}))
+    for name, kw in calls:
+        fn = getattr(PB, name)
+        fn(snap, src, **kw)
+        (dist, levels), t = wall_s(lambda: fn(snap, src, **kw))
+        check(np.array_equal(dist, want), f"{where}: {name}({kw}) from {src} "
+              f"differs from frontier_bfs_hybrid at "
+              f"{int(np.sum(dist != want))} vertices")
+        row = {"call": name, **kw, "levels": levels, "wall_s": t}
+        if name == "frontier_bfs_tiled":
+            (_, (bounds, *_)), = snap._tiled_shards_by_device.values()
+            row["shards"] = len(bounds) - 1
+        runs.append(row)
+    return runs
+
+
+def phase_push_s22(PB, P, PF, G, ref, card) -> None:
+    """Phase 8b on phase 5's s22 snapshot (from_chunked_csr): the push
+    BFS, plain and tiled (its defaults, and 2^25 edges a shard: 4 shards
+    or more), each equal to frontier_bfs_hybrid from bench.py's first
+    source; then the fused kernel against its plain version on the card
+    and frontier_bfs_hybrid from the same source."""
+    t0 = time.time()
+    snap, hg = ref["snap"], ref["hg"]
+    g = G.graph_from_numpy(hg, "cuda")
+    src = sample_sources(hg["deg"], 1)[0]
+    want, lh = P.frontier_bfs_hybrid(g, src, return_device=True)
+    runs = push_runs(PB, snap, src, want.cpu().numpy(), 1 << 25,
+                     "phase 8b")
+    check(runs[-1]["shards"] >= 4, f"max_shard_edges=2^25 gave "
+          f"{runs[-1]['shards']} shards")
+    drop_push_caches(snap)
+    r = check_fused(PF, g, src, f"phase 8b s{ENGINE_SCALE}", want=want)
+    del g, want
+    torch.cuda.empty_cache()
+    say(f"phase 8b: s{ENGINE_SCALE} push-frontier BFS from {src} on {card}, "
+        f"each dist equal to frontier_bfs_hybrid's ({lh} levels): "
+        + json.dumps(runs) + f"; the fused kernel bit-equal to its plain "
+        f"version on the card ({r['levels']} levels, modes {r['modes']}) "
+        f"and to frontier_bfs_hybrid; {time.time() - t0:.1f} s")
+
+
+# ---- phase 18: the OLTP remainder on the card's host
+
+def graph_signature(g) -> tuple:
+    """A graph's vertices (label, name, age, score) and edges (label,
+    out name, in name), sorted: equal for graphs equal up to their ids."""
+    tx = g.new_transaction(read_only=True)
+    try:
+        vs, es = [], []
+        for v in tx.vertices():
+            vs.append((v.label(), v.value("name"), v.value("age"),
+                       v.value("score")))
+            for e in v.out_edges():
+                es.append((e.label(), v.value("name"),
+                           e.in_vertex().value("name")))
+    finally:
+        tx.rollback()
+    return sorted(vs, key=repr), sorted(es)
+
+
+def host_bfs(n: int, src, dst, source: int) -> np.ndarray:
+    """Level-synchronous BFS over the directed edge arrays, numpy."""
+    from titan_tpu_torch.device import INF
+    dist = np.full(n, INF, np.int64)
+    dist[source] = 0
+    frontier, level = np.array([source]), 0
+    while frontier.size:
+        nxt = np.unique(dst[np.isin(src, frontier)])
+        nxt = nxt[dist[nxt] == INF]
+        level += 1
+        dist[nxt] = level
+        frontier = nxt
+    return dist
+
+
+def phase_oltp_remainder(S, card, dev="cuda") -> dict:
+    """Phase 18 on the card's host, with phase 14b's 2,000-vertex property
+    graph: graphbin and GraphSON written and each read back into a
+    ``gdbm`` graph, equal to the source graph; ``graph.compute()``
+    PageRank and BFS on the card over the gdbm graph (within
+    PAGERANK_RTOL of float64; equal to a host BFS over the edges read
+    back), counting its seg_scan launches; a ``metrics.enabled`` gdbm
+    graph with a CSV reporter; ``deploy`` start, status and stop of a
+    storage node and a scan worker. Returns the walls and launches.
+    ``dev`` is where compute() runs."""
+    import shutil
+
+    import titan_tpu_torch
+    from titan_tpu_torch import deploy
+    from titan_tpu_torch import io as tio
+    from titan_tpu_torch.models import bfs as MB
+    from titan_tpu_torch.models import pagerank as MP
+    from titan_tpu_torch.olap import snapshot as SN
+    from titan_tpu_torch.utils.metrics import MERGED_STORE, MetricManager
+
+    t0 = time.time()
+    walls = {}
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".bench_cache", "oltp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    fast = {"storage.lock.wait-time": 5, "ids.authority.wait-time": 5}
+
+    def gdbm(name, **extra):
+        return titan_tpu_torch.open({"storage.backend": "gdbm",
+                                     "storage.directory": os.path.join(
+                                         root, name), **fast, **extra})
+
+    pg, _ = property_graph(SEED)
+    try:
+        want = graph_signature(pg)
+        files = {"graphbin": os.path.join(root, "g.bin"),
+                 "graphson": os.path.join(root, "g.json")}
+        counts, walls["write_graphbin_s"] = wall_s(
+            lambda: tio.write_graphbin(pg, files["graphbin"]))
+        _, walls["write_graphson_s"] = wall_s(
+            lambda: tio.write_graphson(pg, files["graphson"]))
+    finally:
+        pg.close()
+    readers = {"graphbin": tio.read_graphbin, "graphson": tio.read_graphson}
+    for fmt, path in files.items():
+        g = gdbm(fmt)
+        try:
+            got, walls[f"read_{fmt}_s"] = wall_s(lambda: readers[fmt](g, path))
+            check(got == counts, f"read_{fmt}: {got} against {counts}")
+            check(graph_signature(g) == want, f"the gdbm graph read from "
+                  f"{fmt} differs from the property graph")
+        finally:
+            g.close()
+    say(f"phase 18: the {counts['vertices']}-vertex property graph "
+        f"({counts['edges']} edges) written to graphbin "
+        f"({os.path.getsize(files['graphbin'])} B) and GraphSON "
+        f"({os.path.getsize(files['graphson'])} B), each read back into a "
+        f"gdbm graph equal to it")
+
+    # ---- graph.compute() on the card over the gdbm graph (reopened)
+    g = gdbm("graphbin")
+    try:
+        comp = g.compute(device=dev)
+        snap = SN.build(g, directed=False)
+        src_vid = int(snap.vertex_ids[int(np.argmax(snap.out_degree))])
+        S.seg_scan.launches = 0
+        # ---- the gdbm path, with the seg_scan count from 0
+        pr = MP.run(comp, 0.85, 20, 0.0, snapshot=snap)
+        bfs = MB.run(comp, src_vid, snapshot=snap)
+        torch.cuda.synchronize()
+        launches = S.seg_scan.launches
+        # ---- end of the gdbm path
+        f64 = host_pagerank(snap, 0.85, 20)
+        rel = float(np.max(np.abs(np.asarray(pr["rank"]) - f64) / f64))
+        check(pr.iterations == 20 and rel <= PAGERANK_RTOL,
+              f"gdbm PageRank differs from float64 by {rel}")
+        tx = g.new_transaction(read_only=True)
+        try:
+            ends = [(snap.dense_of(v.id), snap.dense_of(e.in_vertex().id))
+                    for v in tx.vertices() for e in v.out_edges()]
+        finally:
+            tx.rollback()
+        a = np.array(ends, np.int64).T
+        ref = host_bfs(snap.n, np.concatenate([a[0], a[1]]),
+                       np.concatenate([a[1], a[0]]), snap.dense_of(src_vid))
+        got = np.asarray(bfs["dist"]).astype(np.int64)
+        check(np.array_equal(got, ref),
+              f"gdbm BFS differs from a host BFS over the edges read back "
+              f"at {int(np.sum(got != ref))} vertices")
+        check(launches > 0, "compute() over the gdbm graph never launched "
+              "seg_scan")
+        snap.close()
+    finally:
+        g.close()
+    say(f"phase 18: compute() on {card} over the gdbm graph: PageRank 20 "
+        f"supersteps within {rel:.3g} of float64, BFS from its hub equal to "
+        f"a host BFS over the edges read back; seg_scan launches {launches}")
+
+    # ---- metrics.enabled with a CSV reporter
+    MetricManager.instance().reset()
+    csv_dir = os.path.join(root, "csv")
+    g = gdbm("metered", **{"metrics.enabled": True,
+                           "metrics.csv.interval-s": 0.05,
+                           "metrics.csv.directory": csv_dir})
+    try:
+        tio.read_graphbin(g, files["graphbin"])
+        g.traversal().V().out().count().next()
+        deadline = time.time() + 10.0
+        while not g._reporters[0].reports and time.time() < deadline:
+            time.sleep(0.02)
+        m = MetricManager.instance()
+        calls = {op: m.counter_value(f"titan_tpu.{MERGED_STORE}.{op}.calls")
+                 for op in ("getSlice", "getSliceMulti", "mutateMany")}
+        commits = m.counter_value("titan_tpu.tx.commit")
+    finally:
+        g.close()
+    rows = open(os.path.join(csv_dir, "metrics.csv")).read().splitlines()
+    check(all(calls.values()) and commits > 0 and len(rows) > 1,
+          f"metrics.enabled: store calls {calls}, commits {commits}, "
+          f"{len(rows)} CSV lines")
+    say(f"phase 18: metrics.enabled on a gdbm graph: store calls {calls}, "
+        f"{commits} commits, the CSV reporter wrote {len(rows)} lines")
+
+    # ---- deploy: a storage node and a scan worker, spawned and stopped
+    dep = os.path.join(root, "deploy.yaml")
+    with open(dep, "w") as f:
+        f.write(f"services:\n  - kind: storage-node\n    name: store-a\n"
+                f"    data-dir: {root}/store-a\n    port: 0\n"
+                f"  - kind: scan-worker\n    name: worker-a\n    port: 0\n")
+    t1 = time.time()
+    check(deploy.start(dep) == 2, "deploy start did not start 2 services")
+    try:
+        time.sleep(1.0)
+        st = deploy.status(dep)
+        check(st["store-a"] and st["worker-a"], f"deploy status {st}")
+        check(deploy.start(dep) == 0, "a second deploy start spawned again")
+    finally:
+        stopped = deploy.stop(dep)
+    st = deploy.status(dep)
+    check(stopped == 2 and st == {"store-a": None, "worker-a": None},
+          f"deploy stop {stopped}, status {st}")
+    walls["deploy_s"] = time.time() - t1
+    shutil.rmtree(root, ignore_errors=True)
+    walls["phase_s"] = time.time() - t0
+    say(f"phase 18: deploy started, saw and stopped a storage node and a "
+        f"scan worker (pidfiles); walls (host clock, s) " + json.dumps(walls))
+    check(walls["phase_s"] < 60.0, f"phase 18 took {walls['phase_s']:.1f} s")
+    return {"launches": launches, **walls}
+
+
 def sssp_round_split(trace) -> list[dict]:
     """Per round from a drained ``_trace_rounds``: the plan's seconds and
     the pushes' (from the end of this plan to the start of the next,
@@ -5557,7 +6067,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from titan_tpu_torch import native
+    from titan_tpu_torch.models import bfs as PB
     from titan_tpu_torch.models import bfs_hybrid as P
+    from titan_tpu_torch.models import bfs_hybrid_fused as PF
     from titan_tpu_torch.models import frontier as FR
     from titan_tpu_torch.models import pagerank as PR
     from titan_tpu_torch.olap import graph500 as G
@@ -5572,16 +6084,20 @@ def main() -> int:
     print(card, flush=True)
     t0 = time.time()
     builds = [Background(F.kernel_library), Background(F.exhaust_library),
-              Background(S.kernel_library), Background(native.library)]
+              Background(S.kernel_library), Background(PF.kernel_library),
+              Background(native.library)]
     for b in builds:
         b.result()
-    say(f"phase 1: built frontier_round, batched_exhaust and seg_scan "
-        f"(nvcc, sm_90a, one process each, all at once) and the native "
-        f"Graph500 library in {time.time() - t0:.1f} s")
+    say(f"phase 1: built frontier_round, batched_exhaust, seg_scan and "
+        f"bfs_fused (nvcc, sm_90a, one process each, all at once) and the "
+        f"native Graph500 library in {time.time() - t0:.1f} s")
     for name, lib in (("frontier_round", F.kernel_library()),
                       ("batched_exhaust", F.exhaust_library()),
-                      ("seg_scan", S.kernel_library())):
+                      ("seg_scan", S.kernel_library()),
+                      ("bfs_fused", PF.kernel_library())):
         say(f"phase 1: ptxas {name}: " + "; ".join(ptxas_lines(lib)))
+    say(f"phase 1: bfs_fused's cooperative grid: "
+        f"{PF.kernel_library().tt_bfs_fused_grid()} blocks of 256 threads")
 
     def host_build(scale):
         t = time.time()
@@ -5596,6 +6112,7 @@ def main() -> int:
     phase_seg_scan_cases(S)
     phase_seg_scan_rows(S)
     phase_small(F, P, G)
+    phase_fused_small(PF, P, G, card)
     ref = engine_references(engine_build)
     main_build.join()     # the timed phases run with the host otherwise idle
     seg_rec, superstep_s = phase_engine(S, P, G, ref, card)
@@ -5607,6 +6124,7 @@ def main() -> int:
     seg_rec["launches"] = sum(seg_rec["launches_by_path"].values())
     seg_rec["rows"] = batched["rows"]
     peel22 = phase_frontier_s22(F, P, G, FR, PR, ref, card, superstep_s)
+    phase_push_s22(PB, P, PF, G, ref, card)
     phase10 = phase_serving_s22(F, P, FR, S, ref, card)
     served = phase10["launches"]
     seg_rec["launches_by_path"]["serving"] = served["seg_scan"]
@@ -5661,10 +6179,13 @@ def main() -> int:
     say("phase 17e: walls (host clock, s) " + json.dumps(walls))
     check(walls["fleet_s"] + walls["host_computer_s"] + walls["phase_s"]
           < 60.0, f"phases 16 and 17 took more than 60 s: {walls}")
+    oltp = phase_oltp_remainder(S, card)
     gc.collect()          # the store and its snapshots, before s26
     del ref               # and with it the s22 graph cached on the card
     torch.cuda.empty_cache()
-    g, hg, rec = phase_main(F, P, G, main_build, card)
+    g, hg, per_source, teps6, rec = phase_main(F, P, G, main_build, card)
+    fused_rec = phase_fused_main(PF, G, g, hg, per_source, teps6, card)
+    del per_source
     replays, paths, sweep, x_rec = phase_batched(F, P, G, g, hg, card)
     peel26 = phase_frontier_s26(F, P, FR, g, hg, card)
     del g
@@ -5683,6 +6204,7 @@ def main() -> int:
     rec["launches_by_path"]["plane"] = plane_runs.total["frontier_round"]
     seg_rec["launches_by_path"]["store"] = store_runs.total["seg_scan"]
     seg_rec["launches_by_path"]["plane"] = plane_runs.total["seg_scan"]
+    seg_rec["launches_by_path"]["gdbm"] = oltp["launches"]
     x_rec["launches_by_path"].update(
         serving=served["batched_exhaust"],
         live=live_runs.total["batched_exhaust"],
@@ -5697,7 +6219,9 @@ def main() -> int:
         if host_runs.total[key]:
             r["launches_by_path"]["host_computer"] = host_runs.total[key]
         r["launches"] = sum(r["launches_by_path"].values())
-    print(json.dumps({"kernels": [rec, seg_rec, x_rec]}), flush=True)
+    fused_rec["launches_by_path"] = {"bfs_fused": fused_rec["launches"]}
+    print(json.dumps({"kernels": [rec, seg_rec, x_rec, fused_rec]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

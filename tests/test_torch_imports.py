@@ -437,3 +437,78 @@ def test_scans_indexes_and_the_host_computer_load_no_jax():
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+SLICE_17 = [("models", "bfs"), ("models", "bfs_hybrid_fused"),
+            ("storage", "gdbmkv"), ("io",), ("deploy",),
+            ("config", "docgen"), ("utils", "metrics")]
+
+
+def test_the_bfs_variants_and_the_oltp_remainder_are_scanned():
+    for parts in SLICE_17:
+        path = ROOT.joinpath("titan_tpu_torch", *parts[:-1],
+                             parts[-1] + ".py")
+        assert path in FILES, path
+
+
+def test_the_bfs_variants_and_the_oltp_remainder_load_no_jax():
+    """At run time: the fused BFS's plain version, the push-frontier BFS
+    (plain and tiled), a metered gdbm graph with a CSV reporter written
+    to graphbin and GraphSON and read back, docgen and deploy's status
+    load no module of jax or titan_tpu."""
+    code = textwrap.dedent("""\
+        import os, sys, tempfile
+        import numpy as np
+        import titan_tpu_torch
+        from titan_tpu_torch import deploy, io as tio
+        from titan_tpu_torch.config.docgen import render
+        from titan_tpu_torch.models import bfs as B
+        from titan_tpu_torch.models import bfs_hybrid_fused as F
+        from titan_tpu_torch.olap import snapshot as SN
+        rng = np.random.default_rng(1)
+        s, t = rng.integers(0, 64, 300), rng.integers(0, 64, 300)
+        snap = SN.from_arrays(64, np.concatenate([s, t]),
+                              np.concatenate([t, s]))
+        d0, _ = F.frontier_bfs_hybrid_fused(snap, int(s[0]), device="cpu")
+        d1, _ = B.frontier_bfs(snap, int(s[0]), device="cpu")
+        d2, _ = B.frontier_bfs_tiled(snap, int(s[0]), device="cpu",
+                                     max_shard_edges=100)
+        assert (d0 == d1).all() and (d1 == d2).all()
+        d = tempfile.mkdtemp()
+        fast = {"storage.lock.wait-time": 5, "ids.authority.wait-time": 5}
+        g = titan_tpu_torch.open({"storage.backend": "gdbm",
+                                  "storage.directory": d + "/a",
+                                  "metrics.enabled": True,
+                                  "metrics.csv.interval-s": 0.05,
+                                  "metrics.csv.directory": d + "/csv",
+                                  **fast})
+        tx = g.new_transaction()
+        a = tx.add_vertex("person", name="a")
+        a.add_edge("knows", tx.add_vertex("person", name="b"))
+        tx.commit()
+        tio.write_graphbin(g, d + "/g.bin")
+        tio.write_graphson(g, d + "/g.json")
+        import time
+        deadline = time.time() + 10
+        while not g._reporters[0].reports and time.time() < deadline:
+            time.sleep(0.02)
+        g.close()
+        for i, (fn, path) in enumerate(((tio.read_graphbin, "/g.bin"),
+                                        (tio.read_graphson, "/g.json"))):
+            h = titan_tpu_torch.open({"storage.backend": "gdbm",
+                                      "storage.directory": d + f"/r{i}",
+                                      **fast})
+            assert fn(h, d + path) == {"vertices": 2, "edges": 1}
+            h.close()
+        assert os.path.exists(d + "/csv/metrics.csv")
+        assert "titan_tpu_torch.config.docgen" in render()
+        open(d + "/dep.yaml", "w").write("services: []\\n")
+        assert deploy.status(d + "/dep.yaml") == {}
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "titan_tpu"))
+        print(bad)
+        """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -162,7 +162,16 @@ def gods_pair():
 
 
 @pytest.fixture
-def pair(gods_pair):
+def pair(gods_pair, monkeypatch):
+    # job ids come from a counter a process: both packages' restart at
+    # job-1 here, so ids agree whichever test files ran before in this
+    # process (port-only serving tests advance only the port's)
+    import itertools
+
+    from titan_tpu.olap.serving import jobs as jjobs
+    from titan_tpu_torch.olap.serving import jobs as pjobs
+    for mod in (jjobs, pjobs):
+        monkeypatch.setattr(mod, "_ids", itertools.count(1))
     servers = {w: _serve(w, g) for w, g in gods_pair.items()}
     yield servers
     for srv in servers.values():

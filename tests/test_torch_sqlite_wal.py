@@ -177,11 +177,20 @@ def test_two_handles_share_one_directory(tmp_path):
 
 
 def test_the_other_stores_still_refuse(tmp_path):
-    # "remote" mounts a storage node (tests/test_torch_remote.py) and
-    # "remote-cluster" a ring of them (tests/test_torch_cluster.py)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        titan_tpu_torch.open({"storage.backend": "gdbm",
+    # none does any more: "remote" mounts a storage node
+    # (tests/test_torch_remote.py), "remote-cluster" a ring of them
+    # (tests/test_torch_cluster.py) and "gdbm" opens its files
+    # (tests/test_torch_gdbm.py)
+    g = titan_tpu_torch.open({"storage.backend": "gdbm",
                               "storage.directory": str(tmp_path)})
+    try:
+        tx = g.new_transaction()
+        tx.add_vertex("person", name="a")
+        tx.commit()
+        assert g.traversal().V().count().next() == 1
+    finally:
+        g.close()
+    assert (tmp_path / "edgestore.gdbm").exists()
 
 
 def test_remote_cluster_over_sqlite_nodes_equals_jax(tmp_path):

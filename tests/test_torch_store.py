@@ -3,9 +3,9 @@ JAX package's: the same seeded DDL and transactions on both graphs give
 byte-equal edgestore rows, equal vertex and relation ids, equal mutation
 epochs and equal change payloads. The other stores (ids, locks, config)
 carry the instance id and timestamps, so they are compared structurally
-only. What the port leaves out raises NotImplementedError naming ROADMAP
-queue 1, item 11; the sqlite store, the WAL and the log processors are
-ported (tests/test_torch_sqlite_wal.py), and so are ``traversal()`` and
+only. The JAX package's ``tpu`` computer raises NotImplementedError
+naming the port's ``gpu`` computer; every store, ``metrics.enabled``, the
+sqlite store, the WAL and the log processors are ported (tests/test_torch_sqlite_wal.py), and so are ``traversal()`` and
 the graph, transaction and vertex queries (tests/test_torch_query.py,
 tests/test_torch_traversal.py)."""
 
@@ -185,12 +185,18 @@ def test_listeners_are_held_weakly():
 
 
 @pytest.mark.parametrize("backend", ["gdbm"])
-def test_other_stores_name_their_roadmap_item(backend):
-    """``remote`` mounts a storage node (tests/test_torch_remote.py),
-    ``remote-cluster`` a ring of them (tests/test_torch_cluster.py)."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        titan_tpu_torch.open({"storage.backend": backend,
-                              "storage.directory": "unused"})
+def test_other_stores_name_their_roadmap_item(backend, tmp_path):
+    """Every store of the JAX package's registry is ported: ``remote``
+    mounts a storage node (tests/test_torch_remote.py), ``remote-cluster``
+    a ring of them (tests/test_torch_cluster.py), and ``gdbm`` opens
+    (tests/test_torch_gdbm.py)."""
+    from titan_tpu_torch.storage.gdbmkv import GdbmStoreManager
+    g = titan_tpu_torch.open({"storage.backend": backend,
+                              "storage.directory": str(tmp_path)})
+    try:
+        assert isinstance(g.backend.manager, GdbmStoreManager)
+    finally:
+        g.close()
 
 
 def test_remote_cluster_opens_and_equals_jax():
@@ -246,11 +252,22 @@ def test_sqlite_store_keeps_commits_across_a_reopen(tmp_path):
 
 @pytest.mark.parametrize("config", [
     {"metrics.enabled": True}, {"storage.backend": "gdbm"}])
-def test_refused_options_name_their_roadmap_item(config):
-    """``index.<name>.backend`` opens its provider now
-    (``test_formerly_refused_calls_equal_jax``)."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        titan_tpu_torch.open({"storage.backend": "inmemory", **config})
+def test_refused_options_name_their_roadmap_item(config, tmp_path):
+    """No option is refused any more: ``index.<name>.backend`` opens its
+    provider (``test_formerly_refused_calls_equal_jax``),
+    ``metrics.enabled`` instruments the stores
+    (tests/test_torch_metrics_store.py) and ``gdbm`` opens
+    (tests/test_torch_gdbm.py)."""
+    from titan_tpu_torch.storage.gdbmkv import GdbmStoreManager
+    from titan_tpu_torch.utils.metrics import MetricInstrumentedStoreManager
+    g = titan_tpu_torch.open({"storage.backend": "inmemory",
+                              "storage.directory": str(tmp_path), **config})
+    try:
+        want = (MetricInstrumentedStoreManager if "metrics.enabled" in config
+                else GdbmStoreManager)
+        assert isinstance(g.backend.manager, want)
+    finally:
+        g.close()
 
 
 def test_log_tx_option_builds_the_wal():
@@ -308,7 +325,8 @@ def test_refused_methods_name_their_roadmap_item(call):
         m.make_property_key("k", str)
         m.build_index("ci").add_key("k").build_composite_index()
         m.commit()
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(NotImplementedError,
+                           match="computer.backend='gpu'"):
             call(g)
     finally:
         g.close()

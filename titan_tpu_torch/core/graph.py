@@ -5,9 +5,10 @@ opens the Backend, builds serializers/caches/id-assigner, registers the
 instance, and hosts the commit path that turns a transaction's deltas into
 batched per-row store mutations.)
 
-The port's copy of ``titan_tpu/core/graph.py``. ``metrics.enabled`` raises
-``NotImplementedError`` naming ROADMAP queue 1, item 11
-(``errors.not_ported``). ``traversal()`` is the port's dsl and ``query()``
+The port's copy of ``titan_tpu/core/graph.py``. ``metrics.enabled`` counts
+transactions in the port's ``MetricManager`` and starts its scheduled
+reporters (``utils/metrics.py``), stopped at ``close()``; the Backend
+instruments the stores. ``traversal()`` is the port's dsl and ``query()``
 its graph-centric query; ``compute()`` runs the port's ``GPUGraphComputer``
 (``backend="gpu"``, the default) or ``HostGraphComputer``
 (``backend="host"``); the mixed-index providers are the port's
@@ -121,8 +122,23 @@ class StandardGraph:
             self._open = False
             raise
         self._commit_lock = threading.Lock()
-        # metrics.enabled is refused by the Backend (errors.not_ported)
         self._metrics = None
+        self._metrics_prefix = config.get(d.METRICS_PREFIX) or "titan_tpu"
+        self._reporters = []
+        if config.get(d.BASIC_METRICS):
+            from titan_tpu_torch.utils.metrics import (MetricManager,
+                                                       start_reporters)
+            self._metrics = MetricManager.instance()
+            # periodic background reporters (console/CSV/Graphite), each
+            # gated on its interval option; stopped at close(). Only
+            # started when collection is on — a reporter without
+            # metrics.enabled would dump empty (or another graph's)
+            # snapshots from the shared registry forever. Startup is
+            # deduped per (manager, sink): two graphs with the same
+            # reporter config share one refcounted reporter thread, so
+            # neither emits a duplicate stream and closing one graph
+            # doesn't silence the other
+            self._reporters = start_reporters(config, self._metrics)
 
     # -- mixed index providers ----------------------------------------------
 
@@ -615,6 +631,8 @@ class StandardGraph:
         if not self._open:
             return
         self._open = False
+        for r in getattr(self, "_reporters", ()):
+            r.stop()
         try:
             self.backend.instance_registry.deregister(self.instance_id)
         except Exception:

@@ -80,14 +80,24 @@ class TransactionClosedError(TitanError):
     """Operation on a committed/rolled-back transaction."""
 
 
-def not_ported(what: str) -> NotImplementedError:
+#: the ROADMAP queue 1 items still to port, by number
+_ITEMS = {9: "the multi-device slice"}
+
+
+def not_ported(what: str, item: int | None = None) -> NotImplementedError:
     """The error raised for a part of the JAX package that the port leaves
-    out: the ``gdbm`` store, ``metrics.enabled`` (instrumented stores and
-    metric reporters), ``deploy.py``, ``io.py``, ``config/docgen.py`` and
-    the ``tpu`` computer (ROADMAP queue 1, item 11)."""
+    out. With ``item``, a part still to port, named with its ROADMAP queue
+    1 item: 9, the multi-device slice (``frontier_bfs_sharded``,
+    ``run_sharded``, mesh-placed batches and schedulers). Without, the
+    ``tpu`` computer, which has a counterpart instead: the port's ``gpu``
+    computer."""
+    if item is None:
+        return NotImplementedError(
+            f"{what} is not ported: the port's counterpart of the JAX "
+            "package's TPU computer is computer.backend='gpu'")
     return NotImplementedError(
-        f"{what} is not ported (ROADMAP queue 1, item 11: the OLTP "
-        "remainder)")
+        f"{what} is not ported (ROADMAP queue 1, item {item}: "
+        f"{_ITEMS[item]})")
 
 
 #: top-level packages the port never imports, not even by a name it is

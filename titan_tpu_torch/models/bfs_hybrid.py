@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from titan_tpu_torch.device import INF, cache_key, next_pow2, resolve_device
+from titan_tpu_torch.errors import not_ported
 from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.ops.compaction import (CLAIM_SENTINEL, claim_dedup,
                                             claim_reset, compact_ids,
@@ -754,9 +755,8 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
     job's frontier emptied or it was dropped), completed np bool [K]."""
     dev = resolve_device(device)
     if isinstance(snap_or_graph, dict) and "_state_sharding" in snap_or_graph:
-        raise NotImplementedError(
-            "frontier_bfs_batched on a mesh-placed graph (_state_sharding) "
-            "belongs to the multi-device slice (ROADMAP queue 1, item 9)")
+        raise not_ported("frontier_bfs_batched on a mesh-placed graph "
+                         "(_state_sharding)", item=9)
     g = snap_or_graph if isinstance(snap_or_graph, dict) \
         else build_chunked_csr(snap_or_graph, dev)
     if g["dstT"].device.type != dev.type:

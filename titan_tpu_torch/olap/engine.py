@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from titan_tpu_torch.device import resolve_device
+from titan_tpu_torch.errors import not_ported
 from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.olap.api import (DenseMapReduce, DenseProgram,
                                       MapReduce, execute_map_reduce)
@@ -361,9 +362,7 @@ def run_single_batched(program: DenseProgram, snap: GraphSnapshot,
 
 def run_sharded(program: DenseProgram, snap: GraphSnapshot,
                 params: Optional[dict] = None, devices=None):
-    raise NotImplementedError(
-        "run_sharded: the multi-device engine is not ported yet (ROADMAP "
-        "queue 1, item 9)")
+    raise not_ported("run_sharded (the multi-device engine)", item=9)
 
 
 class GPUGraphComputer:

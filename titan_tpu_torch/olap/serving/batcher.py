@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from titan_tpu_torch.device import INF, resolve_device
+from titan_tpu_torch.errors import not_ported
 from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.olap.serving.jobs import Job
 
@@ -139,10 +140,8 @@ class Batcher:
 
     def __init__(self, max_batch: int = 16, mesh=None, device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "Batcher(mesh=...): mesh-placed batches "
-                "(place_batched_csr) belong to the multi-device slice "
-                "(ROADMAP queue 1, item 9)")
+            raise not_ported("Batcher(mesh=...), mesh-placed batches "
+                             "(place_batched_csr)", item=9)
         self.max_batch = max_batch
         self.device = resolve_device(device)
 

@@ -113,6 +113,7 @@ import time
 from typing import Optional
 
 from titan_tpu_torch.device import cache_key, resolve_device
+from titan_tpu_torch.errors import not_ported
 from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.obs.flightrec import FlightRecorder
 from titan_tpu_torch.obs.tracing import TraceHandle, Tracer
@@ -161,9 +162,8 @@ class JobScheduler:
                  autotune_params: Optional[dict] = None,
                  device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "JobScheduler(mesh=...): mesh-placed batches belong to the "
-                "multi-device slice (ROADMAP queue 1, item 9)")
+            raise not_ported("JobScheduler(mesh=...), mesh-placed batches",
+                             item=9)
         # the device every job runs on; None means CUDA and raises
         # without a card
         self.device = resolve_device(device)

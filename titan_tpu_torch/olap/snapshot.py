@@ -19,8 +19,10 @@ without a store scan, ``rebuild_in_place()`` re-scans, and ``close()``
 detaches the listener. Each drops the snapshot's derived layouts and
 device caches where the JAX package drops its own; the device caches
 keep the port's names (``_device_graphs``, ``_hybrid_csr_by_device``,
-``_hybrid_csr_rev_by_device``, ``_hop_label_masks_by_device``), since
-tests hand one snapshot object to both packages.
+``_hybrid_csr_rev_by_device``, ``_hop_label_masks_by_device``, and the
+push-frontier BFS's ``_frontier_csr_by_device``,
+``_tiled_shards_by_device`` and ``_out_degree_by_device``), since tests
+hand one snapshot object to both packages.
 
 The scan dispatches as the JAX package's does: ``edge_keys`` take the
 Python codec (``_scan_python``), a store without packed ops the
@@ -84,6 +86,14 @@ class GraphSnapshot:
     _hop_label_masks_by_device: dict = field(default_factory=dict,
                                              init=False, repr=False,
                                              compare=False)
+    # the push-frontier BFS's device caches, by device
+    # (models/bfs.py): the out-CSR, the tiled shards and the out-degrees
+    _frontier_csr_by_device: dict = field(default_factory=dict, init=False,
+                                          repr=False, compare=False)
+    _tiled_shards_by_device: dict = field(default_factory=dict, init=False,
+                                          repr=False, compare=False)
+    _out_degree_by_device: dict = field(default_factory=dict, init=False,
+                                        repr=False, compare=False)
     # out_csr's cache: (dst_by_src, indptr_out) and the src-order
     # permutation (src-order position -> dst-order row)
     _out_csr: Optional[tuple] = field(default=None, init=False, repr=False,
@@ -368,7 +378,9 @@ class GraphSnapshot:
     #: reversed layout and label masks (olap/serving/interactive/compile)
     _DEVICE_CACHES = ("_device_graphs", "_hybrid_csr_by_device",
                       "_hybrid_csr_rev_by_device",
-                      "_hop_label_masks_by_device")
+                      "_hop_label_masks_by_device",
+                      "_frontier_csr_by_device", "_tiled_shards_by_device",
+                      "_out_degree_by_device")
 
     def _invalidate_layout_caches(self) -> None:
         """Drop out_csr's pair and every device cache (each rebuilds from

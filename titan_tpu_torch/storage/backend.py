@@ -1,6 +1,7 @@
 """Backend orchestrator: opens and wires the named stores of a graph (the
-port's copy of ``titan_tpu/storage/backend.py``; ``metrics.enabled`` is
-refused, see ``errors.not_ported``).
+port's copy of ``titan_tpu/storage/backend.py``; ``metrics.enabled``
+wraps the raw store manager in ``utils/metrics``'s instrumented manager,
+below the store cache).
 
 (reference: titan-core diskstorage/Backend.java:66-711 — fixed store names
 :78-90, cache wrapping :256-265, id-authority store :225-231, global config
@@ -15,7 +16,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-from titan_tpu_torch.errors import not_ported
 from titan_tpu_torch.storage.api import KeyColumnValueStoreManager
 from titan_tpu_torch.storage.cache import ExpirationStoreCache, NoCache, StoreCache
 from titan_tpu_torch.storage.config_store import InstanceRegistry, KCVSConfiguration
@@ -39,9 +39,6 @@ class Backend:
                  instance_id: str = "i0"):
         from titan_tpu_torch.config import defaults as d
         self.config = config
-        if config is not None and config.get(d.BASIC_METRICS):
-            raise not_ported("metrics.enabled (instrumented stores and "
-                             "metric reporters)")
         if manager is None:
             if config is None:
                 raise ValueError("need a config or an explicit store manager")
@@ -64,6 +61,14 @@ class Backend:
             if interval > 0 and hasattr(manager, "start_auto_compaction"):
                 manager.start_auto_compaction(
                     interval, config.get(d.CLUSTER_GC_GRACE))
+        # metrics wrapping sits directly over the raw manager so every opened
+        # store is instrumented, and the expiration cache layers ABOVE it —
+        # cache hits don't count as backend ops (reference: Backend.java:142-146)
+        if config is not None and config.get(d.BASIC_METRICS):
+            from titan_tpu_torch.utils.metrics import \
+                MetricInstrumentedStoreManager
+            manager = MetricInstrumentedStoreManager(
+                manager, prefix=config.get(d.METRICS_PREFIX) or "titan_tpu")
         self.manager = manager
         self.instance_id = instance_id
 

@@ -4,11 +4,11 @@
 Backend.getStorageManager Backend.java:406-414 — shorthand → implementation
 map with reflective fallback to an import path.)
 
-The port's copy registers ``inmemory``, ``sqlite``, ``remote`` (one
-storage node, ``storage/remote.py``) and ``remote-cluster`` (storage
-nodes behind a hash ring, ``storage/cluster.py``); ``gdbm`` raises
-``NotImplementedError`` naming ROADMAP queue 1, item 11. An import path
-under the JAX package or JAX is refused before any import.
+The port's copy registers what the JAX package's does: ``inmemory``,
+``sqlite``, ``gdbm`` (``storage/gdbmkv.py``), ``remote`` (one storage
+node, ``storage/remote.py``) and ``remote-cluster`` (storage nodes behind
+a hash ring, ``storage/cluster.py``). An import path under the JAX
+package or JAX is refused before any import.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from __future__ import annotations
 import importlib
 from typing import Callable
 
-from titan_tpu_torch.errors import not_ported, refuse_foreign
+from titan_tpu_torch.errors import refuse_foreign
 
 _STORE_FACTORIES: dict[str, Callable] = {}
 
@@ -87,14 +87,13 @@ def _remote_cluster(hostname=None, port=None, replication=None,
                                    or MAX_HINTS_PER_PEER))
 
 
-def _not_ported(shorthand: str):
-    def refuse(**kw):
-        raise not_ported(f"storage.backend={shorthand!r}")
-    return refuse
+def _gdbm(directory=None, **kw):
+    from titan_tpu_torch.storage.gdbmkv import GdbmStoreManager
+    return GdbmStoreManager(directory)
 
 
 register_store("inmemory", _inmemory)
 register_store("sqlite", _sqlite)
+register_store("gdbm", _gdbm)
 register_store("remote", _remote)
 register_store("remote-cluster", _remote_cluster)
-register_store("gdbm", _not_ported("gdbm"))

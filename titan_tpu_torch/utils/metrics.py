@@ -1,10 +1,13 @@
-"""Metrics registry: counters, timers, histograms, gauges, labeled children
-(the port's copy of the registry half of ``titan_tpu/utils/metrics.py``;
-the storage instrumentation and the scheduled reporters belong to the
-OLTP layer and are not copied).
+"""Metrics: counters/timers registry + instrumented store wrappers (the
+port's copy of ``titan_tpu/utils/metrics.py``: the registry, the
+scheduled console/CSV/Graphite reporters and the instrumented stores
+that ``metrics.enabled`` wires under the store cache, with the JAX
+package's metric names and output).
 
 The registry is pure host-side bookkeeping; device-side timing comes
-from ``obs/devprof``'s CUDA events, not from here.
+from ``obs/devprof``'s CUDA events, not from here. The instrumented
+wrapper sits *under* the expiration cache so cache hits do not count as
+backend ops.
 
 Dimensional children: ``counter(name, labels={...})`` (and the
 timer/histogram analogs) returns a LABELED CHILD of the unlabeled parent
@@ -31,9 +34,28 @@ from __future__ import annotations
 
 import csv
 import io
+import os
+import sys
 import threading
+import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Iterator, Optional, Sequence
+
+from titan_tpu_torch.storage.api import (Entry, KeyColumnValueStore,
+                                         KeyColumnValueStoreManager,
+                                         KeySliceQuery, SliceQuery,
+                                         StoreTransaction)
+
+# merged-store metric naming: per-store metrics roll up under these merged
+# names exactly like the reference (reference: Backend.java:83-86
+# METRICS_MERGED_STORE / METRICS_MERGED_CACHE)
+MERGED_STORE = "storeManager"
+MERGED_CACHE = "cache"
+
+M_CALLS = "calls"
+M_TIME = "time"
+M_EXCEPTIONS = "exceptions"
+M_ENTRIES_COUNT = "entries-returned"
 
 
 @dataclass
@@ -509,16 +531,22 @@ class MetricManager:
         ``type`` (counter | timer | histogram) and ``count``, plus the
         kind's stats (timers in ms, histograms in their raw unit) —
         the reporter/exporter payload."""
+        # the lists are taken under the lock that guards insertion: a
+        # reporter thread snapshots while the graph's threads add names
+        with self._lock:
+            counters = sorted(self._counters.items())
+            timers = sorted(self._timers.items())
+            histograms = sorted(self._histograms.items())
         out: dict = {}
-        for name, c in sorted(self._counters.items()):
+        for name, c in counters:
             out[name] = {"type": "counter", "count": c.count}
-        for name, t in sorted(self._timers.items()):
+        for name, t in timers:
             out[name] = {"type": "timer", "count": t.count,
                          "mean_ms": t.mean_ns / 1e6,
                          "min_ms": t.min_ns / 1e6,
                          "max_ms": t.max_ns / 1e6,
                          "total_ms": t.total_ns / 1e6}
-        for name, h in sorted(self._histograms.items()):
+        for name, h in histograms:
             out[name] = {"type": "histogram", **h.to_dict()}
         return out
 
@@ -578,3 +606,319 @@ class MetricManager:
                 else:
                     w.writerow([name, kind, val["count"],
                                 "", "", "", "", ""])
+
+
+# live reporters keyed by (manager identity, sink identity): two graphs
+# opened with the same reporter config over the process-global registry
+# SHARE one reporter thread instead of each emitting the full shared
+# snapshot (duplicate console/CSV/Graphite streams); the
+# shared reporter is refcounted so closing one graph doesn't silence
+# the other. Entries are evicted on final stop (under the lock) so
+# long-lived servers cycling graph opens don't pin dead reporters.
+_ACTIVE_REPORTERS: dict = {}
+_ACTIVE_LOCK = threading.Lock()
+
+
+class ScheduledReporter:
+    """Background daemon thread that emits a metrics snapshot every
+    ``interval_s`` seconds (reference: the Dropwizard scheduled
+    reporters configured per namespace —
+    GraphDatabaseConfiguration.java:1010-1226). ``emit`` receives
+    (manager, timestamp); exceptions are swallowed after counting
+    (a dead sink must not take the graph down)."""
+
+    def __init__(self, manager: "MetricManager", interval_s: float,
+                 emit, name: str = "reporter"):
+        self.manager = manager
+        self.interval_s = interval_s
+        self.emit = emit
+        self.name = name
+        self.errors = 0
+        self.reports = 0
+        # shared-reporter refcount: start_reporters dedups per
+        # (manager, sink) and hands the SAME reporter to every graph
+        # that asked for it; each graph's close() calls stop(), and
+        # only the LAST stop actually ends the thread. _dedup_key is
+        # set by _shared_reporter so the registry entry is evicted on
+        # final stop; refcount moves happen under _ACTIVE_LOCK (the
+        # same lock _shared_reporter joins under)
+        self._refs = 1
+        self._dedup_key = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name=f"metrics-{name}", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self.report_now()
+
+    def report_now(self) -> None:
+        # a report requested AFTER stop is a no-op: stop() may race an
+        # in-flight emit (which finishes and counts), but a post-stop
+        # call must not double-report to a sink the owner already
+        # considers closed (tests/test_metrics.py pins this race)
+        if self._stop.is_set():
+            return
+        try:
+            self.emit(self.manager, time.time())
+            self.reports += 1
+        except Exception:
+            self.errors += 1
+
+    def stop(self, timeout: float = 5.0) -> None:
+        """Release one acquisition; the last release ends the thread.
+        Call EXACTLY ONCE per start_reporters acquisition while shared
+        (graph.close guards this with its _open flag); once the thread
+        is fully stopped, further stops are idempotent no-ops."""
+        with _ACTIVE_LOCK:
+            if self._stop.is_set():
+                return
+            self._refs -= 1
+            if self._refs > 0:
+                return
+            self._stop.set()
+            if self._dedup_key is not None and \
+                    _ACTIVE_REPORTERS.get(self._dedup_key) is self:
+                del _ACTIVE_REPORTERS[self._dedup_key]
+        self._thread.join(timeout)
+
+    @property
+    def stopped(self) -> bool:
+        return self._stop.is_set()
+
+
+def _console_emit(stream=None):
+    def emit(manager, ts):
+        out = stream or sys.stderr
+        out.write(f"== metrics @ {ts:.0f} ==\n")
+        manager.report_console(out)
+    return emit
+
+
+def _csv_emit(directory: str):
+    def emit(manager, ts):
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, "metrics.csv")
+        fresh = not os.path.exists(path)
+        with open(path, "a", newline="") as f:
+            w = csv.writer(f)
+            if fresh:
+                w.writerow(["timestamp", "metric", "count", "mean_ms",
+                            "min_ms", "max_ms"])
+            for name, val in manager.snapshot().items():
+                if val["type"] == "counter":
+                    w.writerow([f"{ts:.3f}", name, val["count"],
+                                "", "", ""])
+                else:
+                    mean = val.get("mean_ms", val.get("mean", 0.0))
+                    lo = val.get("min_ms", val.get("min", 0.0))
+                    hi = val.get("max_ms", val.get("max", 0.0))
+                    w.writerow([f"{ts:.3f}", name, val["count"],
+                                f"{mean:.6f}", f"{lo:.6f}", f"{hi:.6f}"])
+    return emit
+
+
+def _graphite_emit(host: str, port: int, prefix: str):
+    def emit(manager, ts):
+        import socket
+
+        lines = []
+        t = int(ts)
+        for name, val in manager.snapshot().items():
+            key = f"{prefix}.{name}".replace(" ", "_")
+            if val["type"] == "timer":
+                lines.append(f"{key}.count {val['count']} {t}\n")
+                lines.append(f"{key}.mean_ms {val['mean_ms']:.6f} {t}\n")
+                lines.append(f"{key}.max_ms {val['max_ms']:.6f} {t}\n")
+            elif val["type"] == "histogram":
+                lines.append(f"{key}.count {val['count']} {t}\n")
+                lines.append(f"{key}.p50 {val['p50']:.6f} {t}\n")
+                lines.append(f"{key}.p95 {val['p95']:.6f} {t}\n")
+            else:
+                lines.append(f"{key} {val['count']} {t}\n")
+        with socket.create_connection((host, port), timeout=5.0) as s:
+            s.sendall("".join(lines).encode())
+    return emit
+
+
+def _shared_reporter(key, make) -> ScheduledReporter:
+    with _ACTIVE_LOCK:
+        r = _ACTIVE_REPORTERS.get(key)
+        if r is not None and not r.stopped:
+            r._refs += 1
+            return r
+        r = make()
+        r._dedup_key = key
+        _ACTIVE_REPORTERS[key] = r
+        return r
+
+
+def start_reporters(config, manager: Optional["MetricManager"] = None
+                    ) -> list[ScheduledReporter]:
+    """Start every reporter whose interval option is > 0 (the graph
+    calls this at open and stops them at close). Startup is deduped per
+    (manager, sink): a second graph with an identical sink config joins
+    the running reporter's refcount instead of spawning a duplicate
+    stream."""
+    from titan_tpu_torch.config import defaults as d
+
+    manager = manager or MetricManager.instance()
+    prefix = config.get(d.METRICS_PREFIX)
+    out: list[ScheduledReporter] = []
+    iv = config.get(d.METRICS_CONSOLE_INTERVAL)
+    if iv > 0:
+        out.append(_shared_reporter(
+            (id(manager), "console", iv),
+            lambda: ScheduledReporter(manager, iv, _console_emit(),
+                                      "console")))
+    iv = config.get(d.METRICS_CSV_INTERVAL)
+    if iv > 0:
+        csv_dir = config.get(d.METRICS_CSV_DIR)
+        out.append(_shared_reporter(
+            (id(manager), "csv", iv, csv_dir),
+            lambda: ScheduledReporter(manager, iv, _csv_emit(csv_dir),
+                                      "csv")))
+    iv = config.get(d.METRICS_GRAPHITE_INTERVAL)
+    if iv > 0:
+        host = config.get(d.METRICS_GRAPHITE_HOST)
+        port = config.get(d.METRICS_GRAPHITE_PORT)
+        out.append(_shared_reporter(
+            (id(manager), "graphite", iv, host, port, prefix),
+            lambda: ScheduledReporter(
+                manager, iv, _graphite_emit(host, port, prefix),
+                "graphite")))
+    return out
+
+
+class _OpRecorder:
+    __slots__ = ("_timer", "_calls", "_fails", "_t0")
+
+    def __init__(self, metrics: MetricManager, prefix: str, store: str, op: str):
+        base = f"{prefix}.{store}.{op}"
+        self._timer = metrics.timer(f"{base}.{M_TIME}")
+        self._calls = metrics.counter(f"{base}.{M_CALLS}")
+        self._fails = metrics.counter(f"{base}.{M_EXCEPTIONS}")
+        self._t0 = 0
+
+    def __enter__(self):
+        self._calls.inc()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._timer.update(time.perf_counter_ns() - self._t0)
+        if exc_type is not None:
+            self._fails.inc()
+        return False
+
+
+class MetricInstrumentedStore(KeyColumnValueStore):
+    """Wraps every store op in calls/time/exceptions metrics under both the
+    store's own name and the merged name (reference:
+    diskstorage/util/MetricInstrumentedStore.java)."""
+
+    def __init__(self, store: KeyColumnValueStore, prefix: str,
+                 metrics: Optional[MetricManager] = None,
+                 merged_name: Optional[str] = None):
+        self._store = store
+        self._prefix = prefix
+        self._metrics = metrics or MetricManager.instance()
+        self._merged = merged_name
+
+    @property
+    def name(self) -> str:
+        return self._store.name
+
+    @property
+    def wrapped(self) -> KeyColumnValueStore:
+        return self._store
+
+    def _rec(self, op: str):
+        return _OpRecorder(self._metrics, self._prefix,
+                           self._merged or self._store.name, op)
+
+    def get_slice(self, query: KeySliceQuery, txh: StoreTransaction):
+        with self._rec("getSlice"):
+            result = self._store.get_slice(query, txh)
+        self._metrics.counter(
+            f"{self._prefix}.{self._merged or self._store.name}"
+            f".getSlice.{M_ENTRIES_COUNT}").inc(len(result))
+        return result
+
+    def get_slice_multi(self, keys: Sequence[bytes], slice_query: SliceQuery,
+                        txh: StoreTransaction) -> dict:
+        with self._rec("getSliceMulti"):
+            return self._store.get_slice_multi(keys, slice_query, txh)
+
+    def mutate(self, key: bytes, additions: Sequence[Entry],
+               deletions: Sequence[bytes], txh: StoreTransaction) -> None:
+        with self._rec("mutate"):
+            self._store.mutate(key, additions, deletions, txh)
+
+    def acquire_lock(self, key: bytes, column: bytes, expected: Optional[bytes],
+                     txh: StoreTransaction) -> None:
+        with self._rec("acquireLock"):
+            self._store.acquire_lock(key, column, expected, txh)
+
+    def get_keys(self, query, txh: StoreTransaction) -> Iterator:
+        with self._rec("getKeys"):
+            it = self._store.get_keys(query, txh)
+        return it
+
+    def close(self) -> None:
+        self._store.close()
+
+
+class MetricInstrumentedStoreManager(KeyColumnValueStoreManager):
+    """Wraps opened stores + mutate_many (reference:
+    diskstorage/util/MetricInstrumentedStoreManager.java; merged-store
+    naming per Backend.java:83-86)."""
+
+    def __init__(self, manager: KeyColumnValueStoreManager, prefix: str,
+                 metrics: Optional[MetricManager] = None,
+                 merge_stores: bool = True):
+        self._manager = manager
+        self._prefix = prefix
+        self._metrics = metrics or MetricManager.instance()
+        self._merge = merge_stores
+
+    @property
+    def name(self) -> str:
+        return self._manager.name
+
+    @property
+    def features(self):
+        return self._manager.features
+
+    @property
+    def wrapped(self) -> KeyColumnValueStoreManager:
+        return self._manager
+
+    def open_database(self, name: str) -> KeyColumnValueStore:
+        store = self._manager.open_database(name)
+        merged = MERGED_STORE if self._merge else None
+        return MetricInstrumentedStore(store, self._prefix, self._metrics,
+                                       merged_name=merged)
+
+    def begin_transaction(self, config=None) -> StoreTransaction:
+        return self._manager.begin_transaction(config)
+
+    def mutate_many(self, mutations: dict, txh: StoreTransaction) -> None:
+        # unwrap: the inner manager must see its own stores
+        with _OpRecorder(self._metrics, self._prefix,
+                         MERGED_STORE if self._merge else self._manager.name,
+                         "mutateMany"):
+            self._manager.mutate_many(mutations, txh)
+
+    def get_local_key_partition(self):
+        return self._manager.get_local_key_partition()
+
+    def close(self) -> None:
+        self._manager.close()
+
+    def clear_storage(self) -> None:
+        self._manager.clear_storage()
+
+    def exists(self) -> bool:
+        return self._manager.exists()

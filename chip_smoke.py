@@ -328,7 +328,27 @@ Phases, each of which raises on failure:
    over the gdbm graph, its ``seg_scan`` launches
    ``launches_by_path["gdbm"]``; a ``metrics.enabled`` gdbm graph whose
    store counters count and whose CSV reporter writes; ``deploy`` start,
-   status and stop of a storage node and a scan worker. Within 60 s.
+   status and stop of a storage node and a scan worker. Within 60 s;
+19. the multi-device paths (``parallel/``) on the one card. 19a (after
+   phase 18, on phase 5's s22 snapshot): ``engine.run_sharded`` over a
+   world-1 NCCL mesh in this process, PageRank (20 supersteps, within
+   ``PAGERANK_RTOL`` of float64) and BFS (equal to phase 5's
+   ``frontier_bfs_hybrid``), its ``seg_scan`` launches
+   ``launches_by_path["sharded"]``. 19c (then): ``parallel/multihost.
+   launch`` spawns 2 ranks sharing ``cuda:0`` over gloo, each memory-
+   mapping phase 5's host graph (saved once with ``np.save``) and packing
+   only its block: the sharded hybrid BFS from 4 sources and the sharded
+   push BFS from phase 5's source, bit-equal in ``dist`` and ``levels``
+   to the single-card runs, and ``run_sharded`` PageRank within
+   ``PAGERANK_RTOL`` of float64; both ranks launch ``frontier_round`` and
+   ``seg_scan`` (added under ``"sharded"``). 19b (after phase 6b, on
+   phase 6's s26 graph): ``frontier_bfs_hybrid_sharded`` over a world-1
+   NCCL mesh from bench.py's 4 sources (its ``bfs23_sharded`` stage at
+   the headline scale), each ``dist`` bit-equal to phase 6's validated
+   one and ``levels`` equal, best of 3 after a call that packs and
+   uploads the block, the ratio to phase 6's time, the profile's
+   dispatches and retries by level; its ``frontier_round`` launches under
+   ``"sharded"``; the block (a second copy of dstT) is freed after.
 
 The line before the last is the ``{"kernels": [...]}`` record of the
 four kernels (each record's ``launches`` sums its paths, listed under
@@ -344,8 +364,10 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1455,6 +1477,8 @@ def phase_engine(S, P, G, ref, card) -> dict:
     dist, levels = P.frontier_bfs_hybrid(g500, src0)
     check(np.array_equal(bfs["dist"], dist), "the engine's BFS differs "
           "from frontier_bfs_hybrid")
+    ref["bfs_source"], ref["bfs_dist"] = src0, dist    # phase 19's
+    ref["pagerank_s"], ref["bfs_s"] = pr_s, bfs_s
     label = wcc["label"]
     check(np.array_equal(label, ref["labels"]), "a WCC label is not the "
           "smallest vertex id of its component")
@@ -5992,6 +6016,244 @@ def phase_oltp_remainder(S, card, dev="cuda") -> dict:
     return {"launches": launches, **walls}
 
 
+#: phase 19c's gloo ranks, sharing the one card
+GLOO_RANKS = 2
+
+
+def mesh_group(backend: str):
+    """A world-1 process group in this process over a file rendezvous in
+    a fresh temporary directory, and its mesh on ``cuda:0``. Returns
+    ``(mesh, tmpdir)``; the caller shuts the group down and removes the
+    directory."""
+    from titan_tpu_torch.parallel import multihost as M
+    from titan_tpu_torch.parallel.mesh import vertex_mesh
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    M.init(os.path.join(tmp, "rendezvous"), 1, 0, backend, "cuda:0")
+    return vertex_mesh(1, "cuda:0", backend), tmp
+
+
+def pagerank_params(snap) -> dict:
+    """``models/pagerank.run``'s params for ``snap``."""
+    outdeg = np.maximum(snap.out_degree, 1).astype(np.float32)
+    return {"n": snap.n, "inv_outdeg": np.where(
+        snap.out_degree > 0, 1.0 / outdeg, 0.0).astype(np.float32)}
+
+
+def phase_sharded_engine(S, ref, card) -> int:
+    """Phase 19a: run_sharded on phase 5's s22 snapshot over a world-1
+    NCCL mesh; returns its seg_scan launches."""
+    from titan_tpu_torch.models import bfs as MB
+    from titan_tpu_torch.models import pagerank as MP
+    from titan_tpu_torch.olap import engine as E
+    from titan_tpu_torch.parallel import multihost as M
+
+    t_phase = time.time()
+    snap, src0 = ref["snap"], ref["bfs_source"]
+    params = pagerank_params(snap)
+    mesh, tmp = mesh_group("nccl")
+    try:
+        _, pack_s = wall_s(lambda: E.sharded_block(snap, mesh))
+        # ---- the main path, with the kernel counts from 0
+        S.seg_scan.launches = 0
+        _, warm_s = timed(lambda: E.run_sharded(
+            MP.PageRank(0.85, 20, 0.0), snap, params, mesh))
+        pr, pr_s = timed(lambda: E.run_sharded(
+            MP.PageRank(0.85, 20, 0.0), snap, params, mesh))
+        for _ in range(2):               # the first run warms its types
+            bfs, bfs_s = timed(lambda: E.run_sharded(
+                MB.BFS(), snap, {"source_dense": src0}, mesh))
+        launches = S.seg_scan.launches
+        # ---- end of the main path
+    finally:
+        M.shutdown()
+        snap._sharded_csr_by_mesh.clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    check(launches > 0, "run_sharded never launched seg_scan")
+    check(pr.iterations == 20, f"PageRank ran {pr.iterations} supersteps")
+    rel = float(np.max(np.abs(pr["rank"] - ref["pagerank"])
+                       / ref["pagerank"]))
+    check(rel <= PAGERANK_RTOL, f"sharded PageRank differs from float64 "
+          f"by {rel}")
+    check(np.array_equal(bfs["dist"], ref["bfs_dist"]), "the sharded "
+          "engine's BFS differs from frontier_bfs_hybrid")
+    say(f"phase 19a: s{ENGINE_SCALE} run_sharded over a world-1 NCCL mesh "
+        f"on {card}: PageRank 20 supersteps in {pr_s:.4f} s (CUDA events; "
+        f"phase 5's run_single {ref['pagerank_s']:.4f} s, ratio "
+        f"{pr_s / ref['pagerank_s']:.3f}; the first run {warm_s:.4f} s), "
+        f"within {rel:.3g} of float64; BFS from {src0}: {bfs.iterations} "
+        f"supersteps in {bfs_s:.4f} s (the second run; phase 5's "
+        f"{ref['bfs_s']:.4f} s), dist equal to frontier_bfs_hybrid; "
+        f"the rank's block packed and uploaded in {pack_s:.2f} s; seg_scan "
+        f"launches {launches}; {time.time() - t_phase:.1f} s")
+    return launches
+
+
+def gloo_rank(mesh, gdir: str, meta: dict, srcs: list, src0: int,
+              want: list, push_want: tuple, pr_ref) -> dict:
+    """Phase 19c in one of the ranks sharing ``cuda:0`` over gloo: the
+    host graph memory-mapped from ``gdir``, the rank's blocks packed and
+    uploaded, then the sharded hybrid BFS from ``srcs``, the sharded push
+    BFS from ``src0`` and run_sharded PageRank; rank 0 checks them
+    against the single-card results (``want``: (dist, levels) a source;
+    ``push_want``; the float64 ranks) and returns the walls and every
+    rank's kernel launches."""
+    from titan_tpu_torch.models import bfs as PB
+    from titan_tpu_torch.models import bfs_hybrid_sharded as SH
+    from titan_tpu_torch.models import pagerank as MP
+    from titan_tpu_torch.olap import engine as E
+    from titan_tpu_torch.olap import snapshot as SN
+    from titan_tpu_torch.ops import frontier as F
+    from titan_tpu_torch.ops import seg_scan as S
+
+    t0 = time.time()
+    hg = dict(meta, **{k: np.load(os.path.join(gdir, k + ".npy"),
+                                  mmap_mode="r")
+                       for k in ("dstT", "colstart", "deg")})
+    snap = SN.from_chunked_csr(hg)
+    snap.out_csr()
+    walls = {"setup_s": time.time() - t0}
+    F.frontier_round.launches = S.seg_scan.launches = 0
+    got = []
+    (_, walls["hybrid_first_s"]) = wall_s(
+        lambda: SH.frontier_bfs_hybrid_sharded(hg, srcs[0], mesh))
+    for src in srcs:
+        (dist, levels), t = wall_s(
+            lambda: SH.frontier_bfs_hybrid_sharded(hg, src, mesh))
+        got.append((dist, levels, t))
+    (push, walls["push_s"]) = wall_s(
+        lambda: PB.frontier_bfs_sharded(snap, src0, mesh))
+    params = pagerank_params(snap)
+    (_, walls["pagerank_first_s"]) = wall_s(lambda: E.run_sharded(
+        MP.PageRank(0.85, 20, 0.0), snap, params, mesh))
+    (pr, walls["pagerank_s"]) = wall_s(lambda: E.run_sharded(
+        MP.PageRank(0.85, 20, 0.0), snap, params, mesh))
+    counts = mesh.all_gather(torch.tensor(
+        [F.frontier_round.launches, S.seg_scan.launches]))
+    if mesh.rank != 0:
+        return {}
+    for (dist, levels, _), (wd, wl), src in zip(got, want, srcs):
+        check(np.array_equal(dist, wd) and levels == wl, f"phase 19c: the "
+              f"sharded BFS from {src} differs from the single card's")
+    check(np.array_equal(push[0], push_want[0])
+          and push[1] == push_want[1], "phase 19c: the sharded push BFS "
+          "differs from the single card's frontier_bfs")
+    rel = float(np.max(np.abs(pr["rank"] - pr_ref) / pr_ref))
+    check(rel <= PAGERANK_RTOL, f"phase 19c: sharded PageRank differs "
+          f"from float64 by {rel}")
+    walls["hybrid_s"] = [t for _, _, t in got]
+    return {"walls": walls, "pagerank_rel": rel,
+            "levels": [lv for _, lv, _ in got],
+            "profile": [dict(p) for p in SH.LAST_PROFILE],
+            "launches": counts.tolist()}
+
+
+def phase_sharded_gloo(P, PB, G, ref, card) -> dict:
+    """Phase 19c: 2 ranks sharing the one card over gloo at s22 (see the
+    module doc). Returns the two kernels' launches over both ranks."""
+    from titan_tpu_torch.parallel import multihost as M
+
+    t_phase = time.time()
+    hg, snap, src0 = ref["hg"], ref["snap"], ref["bfs_source"]
+    srcs = sample_sources(hg["deg"], NUM_SOURCES)
+    g500 = G.graph_from_numpy(hg, "cuda")
+    want = [P.frontier_bfs_hybrid(g500, s) for s in srcs]
+    del g500
+    push_want = PB.frontier_bfs(snap, src0, device="cuda")
+    torch.cuda.empty_cache()
+    gdir = tempfile.mkdtemp(prefix="chip_smoke_graph_")
+    try:
+        for k in ("dstT", "colstart", "deg"):
+            np.save(os.path.join(gdir, k + ".npy"), np.asarray(hg[k]))
+        meta = {"n": int(hg["n"]), "q_total": int(hg["q_total"])}
+        rec, wall = wall_s(lambda: M.launch(
+            gloo_rank, GLOO_RANKS, "cuda:0", "gloo", args=(
+                gdir, meta, srcs, src0, want, push_want, ref["pagerank"]),
+            timeout=600))
+    finally:
+        shutil.rmtree(gdir, ignore_errors=True)
+    per_rank = rec["launches"]
+    check(all(f > 0 and s > 0 for f, s in per_rank), f"phase 19c: a rank "
+          f"launched no frontier_round or no seg_scan: {per_rank}")
+    w = rec["walls"]
+    say(f"phase 19c: s{ENGINE_SCALE}, {GLOO_RANKS} ranks sharing one card "
+        f"over gloo ({card}; not a multi-card number): the sharded hybrid "
+        f"BFS from {srcs} bit-equal to the single card's (levels "
+        f"{rec['levels']}), the sharded push BFS from {src0} equal to "
+        f"frontier_bfs, run_sharded PageRank within "
+        f"{rec['pagerank_rel']:.3g} of float64; walls on 2 ranks sharing "
+        f"one card over gloo (host clock, rank 0, s): "
+        + json.dumps(w) + f"; launches [frontier_round, seg_scan] by rank "
+        f"{per_rank}; the launch {wall:.1f} s, the phase "
+        f"{time.time() - t_phase:.1f} s")
+    say("phase 19c: the last source's profile on 2 ranks sharing one card "
+        "over gloo " + json.dumps([{k: p[k] for k in (
+            "level", "mode", "nf", "found_max_per_chip", "found_cap",
+            "retries", "dispatches")} for p in rec["profile"]]))
+    return {"frontier_round": sum(f for f, _ in per_rank),
+            "seg_scan": sum(s for _, s in per_rank)}
+
+
+def phase_sharded_bfs(F, hg, per_source, teps6, card) -> int:
+    """Phase 19b on phase 6's s26 graph: the sharded hybrid BFS over a
+    world-1 NCCL mesh from bench.py's sources; returns its frontier_round
+    launches."""
+    from titan_tpu_torch.models import bfs_hybrid_sharded as SH
+    from titan_tpu_torch.parallel import multihost as M
+
+    t_phase = time.time()
+    n = hg["n"]
+    mesh, tmp = mesh_group("nccl")
+    rows = []
+    try:
+        # ---- the main path, with the kernel counts from 0
+        F.frontier_round.launches = 0
+        _, pack_s = wall_s(lambda: SH.frontier_bfs_hybrid_sharded(
+            hg, per_source[0]["source"], mesh, return_device=True))
+        for r in per_source:
+            best = None
+            for _ in range(REPS):
+                (dist, levels), t = wall_s(
+                    lambda: SH.frontier_bfs_hybrid_sharded(
+                        hg, r["source"], mesh, return_device=True))
+                if best is None or t < best[2]:
+                    best = (dist, levels, t, list(SH.LAST_PROFILE))
+            dist, levels, t, prof = best
+            check(torch.equal(dist, r["dist"][:n]), f"phase 19b: the "
+                  f"sharded BFS from {r['source']} differs from phase 6's "
+                  f"validated dist")
+            check(levels == r["levels"], f"phase 19b: {levels} levels from "
+                  f"{r['source']}, phase 6 took {r['levels']}")
+            rows.append({"source": r["source"], "levels": levels,
+                         "t_bfs": t, "hybrid_t_bfs": r["t_bfs"],
+                         "ratio": t / r["t_bfs"],
+                         "teps": r["m_traversed"] / t,
+                         "levels_profile": [{k: p[k] for k in (
+                             "mode", "dispatches", "retries", "found_cap",
+                             "found_max_per_chip")} for p in prof]})
+        launches = F.frontier_round.launches
+        # ---- end of the main path
+    finally:
+        hg.pop(SH._CACHE, None)
+        M.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    check(launches > 0, "the sharded BFS never launched frontier_round")
+    teps = len(rows) / sum(1.0 / r["teps"] for r in rows)
+    ratio = sum(r["t_bfs"] for r in rows) / sum(r["hybrid_t_bfs"]
+                                                 for r in rows)
+    say(f"phase 19b: s{SCALE} sharded hybrid BFS over a world-1 NCCL mesh "
+        f"on {card} (bench.py's bfs23_sharded at the headline scale): "
+        f"TEPS {teps:.6g} (harmonic mean, best of {REPS}) against phase "
+        f"6's {teps6:.6g}; sharding_overhead_ratio {ratio:.4f} (summed "
+        f"walls); dist bit-equal to phase 6's validated results, levels "
+        f"equal; the block packed and uploaded with the first call in "
+        f"{pack_s:.1f} s; frontier_round launches {launches}; "
+        f"{time.time() - t_phase:.1f} s; per source " + json.dumps(rows))
+    return launches
+
+
 def sssp_round_split(trace) -> list[dict]:
     """Per round from a drained ``_trace_rounds``: the plan's seconds and
     the pushes' (from the end of this plan to the start of the next,
@@ -6180,11 +6442,14 @@ def main() -> int:
     check(walls["fleet_s"] + walls["host_computer_s"] + walls["phase_s"]
           < 60.0, f"phases 16 and 17 took more than 60 s: {walls}")
     oltp = phase_oltp_remainder(S, card)
+    sharded_seg = phase_sharded_engine(S, ref, card)
+    gloo = phase_sharded_gloo(P, PB, G, ref, card)
     gc.collect()          # the store and its snapshots, before s26
     del ref               # and with it the s22 graph cached on the card
     torch.cuda.empty_cache()
     g, hg, per_source, teps6, rec = phase_main(F, P, G, main_build, card)
     fused_rec = phase_fused_main(PF, G, g, hg, per_source, teps6, card)
+    sharded_rounds = phase_sharded_bfs(F, hg, per_source, teps6, card)
     del per_source
     replays, paths, sweep, x_rec = phase_batched(F, P, G, g, hg, card)
     peel26 = phase_frontier_s26(F, P, FR, g, hg, card)
@@ -6205,6 +6470,9 @@ def main() -> int:
     seg_rec["launches_by_path"]["store"] = store_runs.total["seg_scan"]
     seg_rec["launches_by_path"]["plane"] = plane_runs.total["seg_scan"]
     seg_rec["launches_by_path"]["gdbm"] = oltp["launches"]
+    rec["launches_by_path"]["sharded"] = sharded_rounds \
+        + gloo["frontier_round"]
+    seg_rec["launches_by_path"]["sharded"] = sharded_seg + gloo["seg_scan"]
     x_rec["launches_by_path"].update(
         serving=served["batched_exhaust"],
         live=live_runs.total["batched_exhaust"],

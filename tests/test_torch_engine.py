@@ -36,6 +36,7 @@ from titan_tpu_torch.ops import segment as SG
 from titan_tpu_torch.olap import engine as PE
 from titan_tpu_torch.olap import snapshot as PS
 from titan_tpu_torch.olap.api import DenseMapReduce, DenseProgram
+from titan_tpu_torch.parallel.mesh import vertex_mesh
 
 GRAPHS = ["random"] + [f"rmat{s}" for s in range(8, 13)]
 RTOL = 1e-5
@@ -231,8 +232,10 @@ def test_computer_raises_for_what_is_not_ported(monkeypatch):
     finally:
         sched.close()
     assert lane.closed
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        PE.run_sharded(prog, ps)
+    # the multi-device engine is ported: it needs an initialised process
+    # group (none here) for its mesh
+    with pytest.raises(RuntimeError, match="process group"):
+        PE.run_sharded(prog, ps, None, vertex_mesh(2, device="cpu"))
     with pytest.raises(ValueError, match="fixed snapshot"):
         pc.snapshot(directed=False)
     assert pc.snapshot() is ps

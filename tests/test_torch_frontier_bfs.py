@@ -16,6 +16,9 @@ from titan_tpu.olap.tpu import snapshot as snap_mod
 from titan_tpu.olap.tpu.rmat import rmat_edges
 from titan_tpu_torch.olap import engine as PE
 from titan_tpu_torch.olap import snapshot as PS
+from titan_tpu_torch.parallel.multihost import launch
+
+import torch_mesh_worker as W
 
 INF = 1 << 30
 
@@ -244,9 +247,24 @@ def test_2_31_edges_are_refused_like_jax():
 
 
 def test_sharded_entry_points_name_item_9():
+    """The sharded entry points are ported: they run over a mesh, which
+    needs an initialised process group (none here). Only the serving
+    plane's mesh-placed cohort, item 9b, still names item 9."""
+    from titan_tpu_torch.models.bfs_hybrid import (build_chunked_csr,
+                                                   frontier_bfs_batched)
+    from titan_tpu_torch.parallel.mesh import vertex_mesh
+    from titan_tpu_torch.parallel.partition import place_batched_csr
+
     snap, _, _ = _random(0)
-    for call in (lambda: PB.frontier_bfs_sharded(snap, 0, None),
-                 lambda: PE.run_sharded(None, snap)):
+    with pytest.raises(RuntimeError, match="process group"):
+        PB.frontier_bfs_sharded(snap, 0, vertex_mesh(2, device="cpu"))
+    with pytest.raises(RuntimeError, match="process group"):
+        PE.GPUGraphComputer(snapshot=snap, device="cpu", num_devices=2) \
+            .run(PB.BFS(), {"source_dense": 0})
+    g = build_chunked_csr(snap, "cpu")
+    for call in (lambda: place_batched_csr(snap, None),
+                 lambda: frontier_bfs_batched({**g, "_state_sharding": 1},
+                                              [0], device="cpu")):
         with pytest.raises(NotImplementedError, match="item 9"):
             call()
 
@@ -318,3 +336,94 @@ def test_a_card_is_required_without_a_device():
     for fn in (PB.frontier_bfs, PB.frontier_bfs_tiled):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(snap, int(src[0]))
+
+
+# ---------------------------------------------------------------------------
+# the sharded push BFS over gloo ranks, against JAX's at the same mesh size
+# ---------------------------------------------------------------------------
+
+def _sharded_cases():
+    """The cases of tests/test_frontier_bfs.py's sharded tests: random
+    directed graphs (seeds 0 and 5) from a random source, and a chain."""
+    out = []
+    for seed in (0, 5):
+        rng = np.random.default_rng(seed)
+        n = int(rng.integers(50, 800))
+        e = int(rng.integers(10, n * 6))
+        src = rng.integers(0, n, e).astype(np.int32)
+        dst = rng.integers(0, n, e).astype(np.int32)
+        out.append({"name": f"random{seed}", "n": n, "src": src,
+                    "dst": dst, "source": int(rng.integers(0, n))})
+    src = np.arange(99, dtype=np.int32)
+    out.append({"name": "chain", "n": 100, "src": src, "dst": src + 1,
+                "source": 0})
+    return out
+
+
+SHARDED = _sharded_cases()
+
+
+@pytest.fixture(scope="module", params=(1, 2, 4), ids=lambda d: f"D{d}")
+def sharded_runs(request):
+    """One launch a world size with every case; JAX's at the same D."""
+    from titan_tpu.parallel.mesh import vertex_mesh
+
+    D = request.param
+    port = launch(W.push_bfs_cases, D, "cpu", args=(
+        [{k: c[k] for k in ("n", "src", "dst", "source")}
+         for c in SHARDED],), timeout=240)
+    jax = [JB.frontier_bfs_sharded(
+        snap_mod.from_arrays(c["n"], c["src"], c["dst"]), c["source"],
+        vertex_mesh(D)) for c in SHARDED]
+    return port, jax
+
+
+def _numpy_bfs(n, src, dst, s0):
+    dist = np.full(n, INF, np.int64)
+    dist[s0] = 0
+    front = [s0]
+    adj = [[] for _ in range(n)]
+    for a, b in zip(src, dst):
+        adj[a].append(b)
+    while front:
+        nxt = []
+        for v in front:
+            for w in adj[v]:
+                if dist[w] == INF:
+                    dist[w] = dist[v] + 1
+                    nxt.append(w)
+        front = nxt
+    return dist
+
+
+@pytest.mark.parametrize("i", range(len(SHARDED)),
+                         ids=[c["name"] for c in SHARDED])
+def test_frontier_bfs_sharded_equals_jax(sharded_runs, i):
+    """dist and levels bit-equal to JAX's at the same D, to the port's
+    single-device frontier_bfs and to a plain BFS; the chain's dist is
+    its index, in n - 1 levels."""
+    port, jax = sharded_runs
+    case = SHARDED[i]
+    (dp, lp), (dj, lj) = port[i], jax[i]
+    assert np.array_equal(dp, np.asarray(dj)) and lp == lj
+    snap = PS.from_arrays(case["n"], case["src"], case["dst"])
+    ds, _ = PB.frontier_bfs(snap, case["source"], device="cpu")
+    assert np.array_equal(dp, ds)
+    assert np.array_equal(dp, _numpy_bfs(case["n"], case["src"],
+                                         case["dst"], case["source"]))
+    if case["name"] == "chain":
+        assert np.array_equal(dp, np.arange(100)) and lp == 99
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4, 8])
+def test_shard_out_csr_rows_equal_jax(D):
+    """Each rank's block of the out-CSR is the JAX package's row of it."""
+    case = SHARDED[0]
+    js = snap_mod.from_arrays(case["n"], case["src"], case["dst"])
+    block, e_max, dst_sh, ip_sh, deg_sh = JB._shard_out_csr(js, D)
+    ps = PS.from_numpy(js)
+    for d in range(D):
+        got = PB._shard_out_csr(ps, D, d)
+        assert got[:2] == (block, e_max)
+        for a, b in zip(got[2:], (dst_sh[d], ip_sh[d], deg_sh[d])):
+            assert np.array_equal(a, b)

@@ -512,3 +512,57 @@ def test_the_bfs_variants_and_the_oltp_remainder_load_no_jax():
                          capture_output=True, text=True, timeout=180)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+#: the multi-device layer and the sharded models
+MULTI_DEVICE = [("parallel", m) for m in ("__init__", "mesh", "partition",
+                                          "multihost")] + [
+    ("models", "bfs_hybrid_sharded"), ("models", "bfs"), ("olap", "engine")]
+
+
+def test_the_multi_device_modules_are_scanned():
+    for parts in MULTI_DEVICE:
+        path = ROOT.joinpath("titan_tpu_torch", *parts[:-1],
+                             parts[-1] + ".py")
+        assert path in FILES, path
+    assert ROOT / "scripts" / "torch_sharded_4card.py" in FILES
+
+
+def test_a_sharded_run_loads_no_jax():
+    """In a fresh interpreter: the launcher, two gloo ranks running the
+    sharded hybrid BFS, the sharded push BFS and the sharded engine, and
+    the parent, load no module of jax or titan_tpu (each rank asserts it
+    for itself in tests/torch_mesh_worker.py)."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        sys.path.insert(0, "tests")
+        import torch_mesh_worker as W
+        from titan_tpu_torch.parallel.multihost import launch
+
+        def main():
+            n = 64
+            src = np.arange(n - 1, dtype=np.int32)
+            s2 = np.concatenate([src, src + 1])
+            d2 = np.concatenate([src + 1, src])
+            case = {"n": n, "src": s2, "dst": d2, "source": 0}
+            got = launch(W.sharded_bfs_cases, 2, "cpu", args=([case],),
+                         timeout=120)
+            assert (got[0]["dist"] == np.arange(n)).all()
+            got = launch(W.push_bfs_cases, 2, "cpu", args=([case],),
+                         timeout=120)
+            assert (got[0][0] == np.arange(n)).all()
+            got = launch(W.engine_cases, 2, "cpu", args=(
+                [{**case, "kind": "bfs"}], "unused"), timeout=120)
+            assert got["refusal"] is not None
+            bad = sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "jaxlib", "titan_tpu"))
+            print(bad)
+
+        if __name__ == "__main__":
+            main()
+        """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -81,16 +81,18 @@ class TransactionClosedError(TitanError):
 
 
 #: the ROADMAP queue 1 items still to port, by number
-_ITEMS = {9: "the multi-device slice"}
+_ITEMS = {9: "9b, the serving plane's mesh=: mesh-placed batches and "
+             "schedulers"}
 
 
 def not_ported(what: str, item: int | None = None) -> NotImplementedError:
     """The error raised for a part of the JAX package that the port leaves
     out. With ``item``, a part still to port, named with its ROADMAP queue
-    1 item: 9, the multi-device slice (``frontier_bfs_sharded``,
-    ``run_sharded``, mesh-placed batches and schedulers). Without, the
-    ``tpu`` computer, which has a counterpart instead: the port's ``gpu``
-    computer."""
+    1 item: 9, whose half 9b is the serving plane's ``mesh=``
+    (mesh-placed batches and schedulers: ``JobScheduler(mesh=)``,
+    ``Batcher(mesh=)``, ``frontier_bfs_batched`` on a mesh-placed graph,
+    ``place_batched_csr``). Without, the ``tpu`` computer, which has a
+    counterpart instead: the port's ``gpu`` computer."""
     if item is None:
         return NotImplementedError(
             f"{what} is not ported: the port's counterpart of the JAX "

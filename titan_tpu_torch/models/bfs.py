@@ -31,8 +31,11 @@ out-CSR are cached on the snapshot by device under the port's own names,
 ``_tiled_shards`` and ``_dev_outdeg``: one snapshot may be handed to
 both packages); ``GraphSnapshot.refresh()`` drops them.
 
-``frontier_bfs_sharded`` (the shard_map level step over a mesh) belongs
-to the multi-device slice, ROADMAP queue 1 item 9, and raises.
+``frontier_bfs_sharded`` runs the same level over a vertex mesh
+(``parallel/mesh.VertexMesh``): ``dist`` replicated, each rank expanding
+its own block's out-CSR rows, and one ``all_reduce(MIN)`` of ``dist`` a
+level (JAX's ``pmin``). Its rank block is cached as
+``snap._frontier_shards_by_mesh`` by ``mesh.key``.
 """
 
 from __future__ import annotations
@@ -41,9 +44,10 @@ import numpy as np
 import torch
 
 from titan_tpu_torch.device import INF, cache_key, next_pow2, resolve_device
-from titan_tpu_torch.errors import not_ported
 from titan_tpu_torch.olap.api import DenseProgram
 from titan_tpu_torch.ops.compaction import compact_ids
+from titan_tpu_torch.parallel.mesh import VertexMesh
+from titan_tpu_torch.parallel.multihost import host_sharded
 
 
 class BFS(DenseProgram):
@@ -196,11 +200,110 @@ def frontier_bfs(snap, source_dense: int, max_levels: int = 1000,
     return dist[:n].cpu().numpy(), level
 
 
-def frontier_bfs_sharded(snap, source_dense: int, mesh,
+def _shard_out_csr(snap, num_shards: int, rank: int):
+    """Rank ``rank``'s slice of the out-CSR: the contiguous vertex block
+    ``[rank*block, (rank+1)*block)`` and exactly its vertices' out-edges
+    (contiguous in the src-sorted layout), padded to the shapes every
+    shard shares. Returns ``(block, e_max, dst [e_max] int32 pad n,
+    local indptr [block+1], out-degrees [block])``, numpy."""
+    n = snap.n
+    dst_by_src, indptr_out = snap.out_csr()
+    block = -(-max(n, 1) // num_shards)
+    starts = [int(indptr_out[min(d * block, n)]) for d in range(num_shards)]
+    ends = [int(indptr_out[min((d + 1) * block, n)])
+            for d in range(num_shards)]
+    e_max = max(1, max(e - s for s, e in zip(starts, ends)))
+    dst_l = np.full((e_max,), n, np.int32)
+    ip_l = np.zeros((block + 1,), np.int32)
+    deg_l = np.zeros((block,), np.int32)
+    # clamp both bounds: with a small n the last blocks may start past
+    # the end of the vertex range
+    lo_v, hi_v = min(rank * block, n), min((rank + 1) * block, n)
+    s, e = starts[rank], ends[rank]
+    dst_l[:e - s] = dst_by_src[s:e]
+    ip = indptr_out[lo_v:hi_v + 1] - s                 # local edge offsets
+    ip_l[:hi_v - lo_v + 1] = ip
+    ip_l[hi_v - lo_v + 1:] = ip[-1] if len(ip) else 0
+    deg_l[:hi_v - lo_v] = snap.out_degree[lo_v:hi_v]
+    return block, e_max, dst_l, ip_l, deg_l
+
+
+def _rank_frontier_shard(snap, mesh: VertexMesh) -> tuple:
+    """``_shard_out_csr`` of this rank on its device, with the global
+    out-degrees, cached as ``snap._frontier_shards_by_mesh[mesh.key]``."""
+    cache = getattr(snap, "_frontier_shards_by_mesh", None)
+    if cache is None:
+        cache = {}
+        snap._frontier_shards_by_mesh = cache
+    got = cache.get(mesh.key)
+    if got is None:
+        block, e_max, dst_l, ip_l, deg_l = _shard_out_csr(
+            snap, mesh.world, mesh.rank)
+        got = (block, e_max) + host_sharded(mesh, lambda d: (
+            dst_l, ip_l, deg_l, np.asarray(snap.out_degree, np.int32)))
+        cache[mesh.key] = got
+    return got
+
+
+def _sharded_level_step(dist, frontier, f_count: int, level: int, shard,
+                        mesh: VertexMesh, f_cap: int, m_cap: int, n_: int):
+    """One level over the mesh: this rank expands the frontier vertices
+    of its block into its copy of ``dist``, the copies are MIN-reduced,
+    and the next frontier is compacted from the merged ``dist``. Returns
+    ``(dist, next_frontier [n_], stats)``, stats = [frontier size, the
+    largest per-block edge total of the next frontier] (int32)."""
+    block, _, dst_l, ip_l, deg_l, out_degree = shard
+    dev = dist.device
+    base = mesh.rank * block
+    valid = torch.arange(f_cap, device=dev) < f_count
+    local = (frontier - base).clamp(0, block - 1).long()
+    mine = valid & (frontier >= base) & (frontier < base + block)
+    nbr = _expand_neighbors(mine, deg_l[local], ip_l[local], dst_l, m_cap,
+                            n_)
+    dist.scatter_reduce_(0, nbr.long(), torch.full_like(nbr, level + 1),
+                         reduce="amin")
+    dist = mesh.all_reduce(dist, "min")
+    changed = dist[:n_] == level + 1
+    _, nxt = compact_ids(changed, n_, n_)
+    fdeg = torch.zeros(-(-n_ // block) * block, dtype=torch.int32,
+                       device=dev)
+    fdeg[:n_] = torch.where(changed, out_degree, 0)
+    per_shard_m = fdeg.view(-1, block).sum(dim=1, dtype=torch.int32)
+    return dist, nxt, torch.stack([changed.sum(dtype=torch.int32),
+                                   per_shard_m.max()])
+
+
+def frontier_bfs_sharded(snap, source_dense: int, mesh: VertexMesh,
                          max_levels: int = 1000):
-    """The JAX package's shard_map frontier BFS over a mesh: the
-    multi-device slice, not ported."""
-    raise not_ported("frontier_bfs_sharded", item=9)
+    """Frontier BFS over a vertex mesh: ``dist`` replicated ([n+1] int32
+    on every rank), the out-CSR sharded by source block, each rank
+    expanding its share of the frontier as ``frontier_bfs`` does, and one
+    ``all_reduce(MIN)`` of ``dist`` a level; the host reads two counts
+    back a level. Every rank calls it with the same arguments.
+
+    Returns ``(dist ndarray [n] int32 with INF for unreachable,
+    levels)``."""
+    n = snap.n
+    if snap.num_edges >= (1 << 31):
+        raise NotImplementedError("int32 edge indices; shard below 2^31")
+    shard = _rank_frontier_shard(snap, mesh)
+    e_max = shard[1]
+    dist = torch.full((n + 1,), INF, dtype=torch.int32, device=mesh.device)
+    dist[source_dense] = 0
+    frontier = torch.full((n,), n, dtype=torch.int32, device=mesh.device)
+    frontier[0] = source_dense
+    f_count, level = 1, 0
+    m_shard_max = int(snap.out_degree[source_dense])
+    while f_count > 0 and m_shard_max > 0 and level < max_levels:
+        f_cap = min(next_pow2(f_count), n)
+        # edge bucket: the largest per-block frontier degree sum
+        m_cap = min(next_pow2(m_shard_max), next_pow2(e_max))
+        dist, frontier, stats = _sharded_level_step(
+            dist, frontier[:f_cap], f_count, level, shard, mesh, f_cap,
+            m_cap, n)
+        f_count, m_shard_max = stats.tolist()
+        level += 1
+    return dist[:n].cpu().numpy(), level
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ and the half-steps alternate:
 
 The phase is a per-vertex state array (all equal), so ``message``, which
 sees only per-edge source state, can mask the inactive direction. Each
-half-step is L2-normalised over the whole graph (one device: a plain
-sum).
+half-step is L2-normalised over the whole graph: the sum of squares goes
+through ``parallel/mesh.global_sum``, all-reduced over the mesh inside
+a sharded run and a plain sum on one device.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from titan_tpu_torch.olap.api import DenseProgram
+from titan_tpu_torch.parallel.mesh import global_sum
 
 
 class HITS(DenseProgram):
@@ -44,7 +46,7 @@ class HITS(DenseProgram):
 
     def apply(self, state, agg, iteration, params):
         even = state["phase"][0] > 0.5     # a device scalar, no readback
-        s = torch.sqrt((agg * agg).sum())
+        s = torch.sqrt(global_sum(agg * agg))
         nagg = torch.where(s > 0, agg / s, agg)
         return {"hub": torch.where(even, state["hub"], nagg),
                 "auth": torch.where(even, nagg, state["auth"]),

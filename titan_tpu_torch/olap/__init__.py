@@ -11,7 +11,7 @@ from titan_tpu_torch.olap.api import (DenseProgram, Memory, Messenger,
 def graph_computer(graph, backend: str = "gpu", **kwargs):
     """``graph.compute()`` dispatch (the counterpart of
     ``titan_tpu/olap/__init__.py``): ``backend="gpu"`` is the superstep
-    engine on one card, ``GPUGraphComputer(graph, **kwargs)``;
+    engine, ``GPUGraphComputer(graph, **kwargs)``;
     ``backend="host"`` is the thread-pool host executor,
     ``HostGraphComputer(graph, **kwargs)``. The JAX package's ``tpu``
     computer is not ported."""

@@ -1,6 +1,6 @@
 """The superstep engine: a ``DenseProgram`` run over a snapshot on one
-device (port of ``titan_tpu/olap/tpu/engine.py``, single device), its
-checkpoint plane, its batched run and the classic MapReduce stages.
+device or over a vertex mesh (port of ``titan_tpu/olap/tpu/engine.py``),
+its checkpoint plane, its batched run and the classic MapReduce stages.
 
 Each superstep gathers every state array at ``src``, computes the
 per-edge messages, combines them per destination with
@@ -24,15 +24,26 @@ live job's ``message``, ``apply`` and ``done`` on its own row (the
 expressions of ``run_single``), and one ``seg_scan`` launch over the K
 rows of messages. A job that reports done freezes.
 
+``run_sharded`` runs one program over a vertex mesh
+(``parallel/mesh.VertexMesh``), one process a rank: the rank holds its
+``[block]`` slice of the state and its destination-owned edge block
+(``parallel/partition.shard_csr``); a superstep all-gathers the state,
+gathers the sources, runs ``message``, combines over the block's
+``block + 1`` segments (the sink last) through ``sorted_segment_combine``
+(``seg_scan`` on a card), runs ``apply`` inside ``parallel/mesh.bound``
+(so ``global_sum`` spans the mesh) and all-reduces the not-done flags.
+
 ``GPUGraphComputer`` is the counterpart of ``TPUGraphComputer``: over a
 graph (``graph.compute()``) it builds one snapshot per parameter set,
 or it holds a fixed snapshot; ``run_async`` submits to its
-``olap/serving`` ``JobScheduler``. The sharded engine is not ported yet
-(ROADMAP queue 1, item 9).
+``olap/serving`` ``JobScheduler``; ``num_devices`` picks the single
+device or the mesh as JAX's does.
 
 Each superstep of ``run_single`` runs under ``obs/devprof.profiled``
-(``engine.superstep``); the graph upload and the outputs' readback count
-on its ``engine.graph`` and ``engine.outputs`` transfer sites.
+(``engine.superstep``; ``run_sharded``'s under
+``engine.superstep_sharded``); the graph upload and the outputs'
+readback count on its ``engine.graph`` and ``engine.outputs`` transfer
+sites (a rank's block on ``engine.graph_sharded``).
 """
 
 from __future__ import annotations
@@ -41,17 +52,20 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from titan_tpu_torch.device import resolve_device
-from titan_tpu_torch.errors import not_ported
 from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.olap.api import (DenseMapReduce, DenseProgram,
                                       MapReduce, execute_map_reduce)
 from titan_tpu_torch.olap.recovery import CheckpointStore
 from titan_tpu_torch.olap.snapshot import GraphSnapshot
-from titan_tpu_torch.ops.segment import (segment_combine, segment_flags,
-                                         segment_metadata,
+from titan_tpu_torch.ops.segment import (combine_identity, segment_combine,
+                                         segment_flags, segment_metadata,
                                          sorted_segment_combine)
+from titan_tpu_torch.parallel.mesh import VertexMesh, bound, vertex_mesh
+from titan_tpu_torch.parallel.multihost import host_sharded
+from titan_tpu_torch.parallel.partition import shard_csr
 
 #: store job id under which GPUGraphComputer.run's own checkpoints live
 #: (the JAX package's: one run a checkpoint directory)
@@ -360,26 +374,128 @@ def run_single_batched(program: DenseProgram, snap: GraphSnapshot,
         it_done[j] or it, n) for j, p in enumerate(params_list)]
 
 
+class ShardedBlock(NamedTuple):
+    """A rank's engine block on its device (``parallel/partition.
+    shard_csr``'s row of the rank)."""
+    n: int
+    n_pad: int
+    block: int
+    src: torch.Tensor            # [e_block] int32, global sources
+    dst: torch.Tensor            # [e_block] int32 in [0, block]; block = sink
+    valid: torch.Tensor          # [e_block] bool
+    last_idx: torch.Tensor       # [block + 1] int32
+    seg_has: torch.Tensor        # [block + 1] bool
+    flags: torch.Tensor          # [e_block] bool, segment starts
+    edge_values: dict            # name -> [e_block] tensor
+
+
+def sharded_block(snap: GraphSnapshot, mesh: VertexMesh) -> ShardedBlock:
+    """This rank's block of ``snap``, packed and uploaded once and cached
+    as ``snap._sharded_csr_by_mesh[mesh.key]``."""
+    cache = getattr(snap, "_sharded_csr_by_mesh", None)
+    if cache is None:
+        cache = snap._sharded_csr_by_mesh = {}
+    got = cache.get(mesh.key)
+    if got is None:
+        sc = shard_csr(snap, mesh.world, ranks=(mesh.rank,))
+        names = sorted(sc.edge_values)
+        up = host_sharded(mesh, lambda d: (
+            sc.src_global[0], sc.dst_local[0], sc.valid[0], sc.last_idx[0],
+            sc.seg_has[0], *(sc.edge_values[k][0] for k in names)))
+        got = ShardedBlock(sc.n, sc.n_pad, sc.block, *up[:5],
+                           segment_flags(up[1]), dict(zip(names, up[5:])))
+        devprof.count_h2d("engine.graph_sharded",
+                          sum(v.numel() * v.element_size() for v in up))
+        cache[mesh.key] = got
+    return got
+
+
 def run_sharded(program: DenseProgram, snap: GraphSnapshot,
-                params: Optional[dict] = None, devices=None):
-    raise not_ported("run_sharded (the multi-device engine)", item=9)
+                params: Optional[dict], mesh: VertexMesh) -> EngineResult:
+    """One DenseProgram over the vertex mesh; every rank calls it with
+    the same arguments and gets the whole result. The rank's state is its
+    ``[block]`` slice of the state padded to ``n_pad`` (zeros past ``n``,
+    as JAX pads it). The loop stops at ``max_iterations`` or when every
+    rank's ``done`` holds: one ``all_reduce(SUM)`` of the not-done flags
+    a superstep, whatever ``done`` returns (a rank's ``False`` may be
+    another's ``True``), and one readback. The final state is
+    all-gathered for ``outputs``."""
+    params = dict(params or {})
+    dev = mesh.device
+    g = sharded_block(snap, mesh)
+    n, n_pad, block = g.n, g.n_pad, g.block
+    lo = mesh.rank * block
+    state = {}
+    for k, v in program.init(n, params).items():
+        v = _to_device(v, dev)
+        pad = v.new_zeros((n_pad - n,) + tuple(v.shape[1:]))
+        state[k] = torch.cat([v, pad])[lo:lo + block].clone()
+    keys = program.edge_keys()
+    edata = {k: v for k, v in g.edge_values.items() if not keys or k in keys}
+    dparams = _device_params(params, dev)
+    it, done = 0, False
+    with bound(mesh):
+        while it < program.max_iterations and not done:
+            state, done = devprof.profiled(
+                "engine.superstep_sharded", _sharded_superstep, program,
+                state, g, edata, dparams, it, mesh)
+            it += 1
+    full = {k: mesh.all_gather(v).flatten(0, 1)[:n] for k, v in state.items()}
+    outputs = program.outputs(full, params)
+    return EngineResult(_host(outputs), it, n)
+
+
+def _sharded_superstep(program: DenseProgram, state: dict, g: ShardedBlock,
+                       edata: dict, dparams: dict, it: int,
+                       mesh: VertexMesh):
+    """One superstep of ``run_sharded``: ``(new_state, done)``, ``done``
+    agreed by every rank."""
+    full = {k: mesh.all_gather(v).flatten(0, 1) for k, v in state.items()}
+    src_state = {k: v.index_select(0, g.src) for k, v in full.items()}
+    del full
+    msg = program.message(src_state, edata, dparams)
+    msg = torch.where(g.valid, msg,
+                      msg.new_full((), combine_identity(program.combine,
+                                                        msg.dtype)))
+    agg = sorted_segment_combine(msg, g.dst, g.last_idx, g.seg_has,
+                                 program.combine, flags=g.flags)[:g.block]
+    new_state = program.apply(state, agg, it, dparams)
+    local = program.done(state, new_state, agg, it, dparams)
+    not_done = torch.logical_not(torch.as_tensor(local, device=mesh.device))
+    return new_state, mesh.all_reduce(not_done.to(torch.int32),
+                                      "sum").item() == 0
 
 
 class GPUGraphComputer:
-    """``graph.compute()`` on one card: runs DensePrograms through
-    ``run_single`` (optionally checkpointed) and then their MapReduce
-    stages, or K parameter sets at once through ``run_single_batched``,
-    over snapshots built from ``graph`` (one per parameter set) or over a
-    fixed ``snapshot``. ``device=None`` means CUDA; the tests pass
-    ``"cpu"``."""
+    """``graph.compute()``: runs DensePrograms through ``run_single``
+    (optionally checkpointed) or, over several ranks, ``run_sharded``,
+    and then their MapReduce stages, or K parameter sets at once through
+    ``run_single_batched``, over snapshots built from ``graph`` (one per
+    parameter set) or over a fixed ``snapshot``. ``device=None`` means
+    CUDA; the tests pass ``"cpu"``.
+
+    ``num_devices`` is JAX's: 1 runs ``run_single``; more runs
+    ``run_sharded`` over ``vertex_mesh(num_devices, device=device)``,
+    which needs an initialised process group of that size with the
+    device's default backend (NCCL on a card, gloo on the CPU; ranks
+    sharing one card over gloo call ``run_sharded`` with their own
+    mesh); 0 takes the initialised group's size, or 1 without one."""
 
     def __init__(self, graph=None, snapshot: Optional[GraphSnapshot] = None,
-                 device=None):
+                 device=None, num_devices: int = 0):
         self.graph = graph
         self._default_snapshot = snapshot
         self._built: dict[tuple, GraphSnapshot] = {}
         self.device = resolve_device(device)
+        self.num_devices = num_devices
         self._scheduler = None
+
+    def _devices(self) -> int:
+        """The mesh size ``run`` uses: ``num_devices``, or for 0 the
+        initialised group's size (1 without a group)."""
+        if self.num_devices > 0:
+            return self.num_devices
+        return dist.get_world_size() if dist.is_initialized() else 1
 
     def snapshot(self, labels=None, edge_keys=(),
                  directed=True) -> GraphSnapshot:
@@ -416,10 +532,22 @@ class GPUGraphComputer:
         kind ``"dense"``); ``resume_from`` reloads the newest VALID
         checkpoint under that path (a torn or corrupted one is skipped by
         digest) and continues the loop, bit-equal to an uninterrupted
-        run; a resumed run writes its checkpoints as the next attempt."""
+        run; a resumed run writes its checkpoints as the next attempt.
+        Checkpoints need the single-device engine (``num_devices`` 1)."""
         if map_reduces:
             _check_map_reduces(map_reduces)
         snap = snapshot or self.snapshot(edge_keys=program.edge_keys())
+        ndev = self._devices()
+        if resume_from is None and checkpoint_to is None and ndev != 1:
+            result = run_sharded(program, snap, params,
+                                 vertex_mesh(ndev, device=self.device))
+            if map_reduces:
+                self._run_map_reduces(map_reduces, result, snap,
+                                      params or {})
+            return result
+        if ndev != 1:
+            raise ValueError("resume_from/checkpoint_to need the single-"
+                             "device engine (set num_devices=1)")
         resume = ck = None
         if resume_from is not None:
             ck = CheckpointStore(resume_from).latest(_RUN_CKPT_ID)

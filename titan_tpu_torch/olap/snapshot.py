@@ -21,8 +21,10 @@ device caches where the JAX package drops its own; the device caches
 keep the port's names (``_device_graphs``, ``_hybrid_csr_by_device``,
 ``_hybrid_csr_rev_by_device``, ``_hop_label_masks_by_device``, and the
 push-frontier BFS's ``_frontier_csr_by_device``,
-``_tiled_shards_by_device`` and ``_out_degree_by_device``), since tests
-hand one snapshot object to both packages.
+``_tiled_shards_by_device`` and ``_out_degree_by_device``, and the
+sharded paths' ``_sharded_csr_by_mesh``, ``_hybrid_shards_by_mesh`` and
+``_frontier_shards_by_mesh``), since tests hand one snapshot object to
+both packages.
 
 The scan dispatches as the JAX package's does: ``edge_keys`` take the
 Python codec (``_scan_python``), a store without packed ops the
@@ -94,6 +96,17 @@ class GraphSnapshot:
                                           repr=False, compare=False)
     _out_degree_by_device: dict = field(default_factory=dict, init=False,
                                         repr=False, compare=False)
+    # the sharded paths' rank blocks, by mesh key (device, world, rank):
+    # the engine's (olap/engine.sharded_block), the sharded hybrid BFS's
+    # (models/bfs_hybrid_sharded.rank_shard) and the sharded push BFS's
+    # (models/bfs.frontier_bfs_sharded)
+    _sharded_csr_by_mesh: dict = field(default_factory=dict, init=False,
+                                       repr=False, compare=False)
+    _hybrid_shards_by_mesh: dict = field(default_factory=dict, init=False,
+                                         repr=False, compare=False)
+    _frontier_shards_by_mesh: dict = field(default_factory=dict,
+                                           init=False, repr=False,
+                                           compare=False)
     # out_csr's cache: (dst_by_src, indptr_out) and the src-order
     # permutation (src-order position -> dst-order row)
     _out_csr: Optional[tuple] = field(default=None, init=False, repr=False,
@@ -380,7 +393,8 @@ class GraphSnapshot:
                       "_hybrid_csr_rev_by_device",
                       "_hop_label_masks_by_device",
                       "_frontier_csr_by_device", "_tiled_shards_by_device",
-                      "_out_degree_by_device")
+                      "_out_degree_by_device", "_sharded_csr_by_mesh",
+                      "_hybrid_shards_by_mesh", "_frontier_shards_by_mesh")
 
     def _invalidate_layout_caches(self) -> None:
         """Drop out_csr's pair and every device cache (each rebuilds from

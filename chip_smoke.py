@@ -29,9 +29,14 @@ Phases, each of which raises on failure:
    first; then the ``batched_exhaust`` kernel bit-equal to its plain
    version: K in {1, 3, 16, 40} with p_total < P, tbits, one owner over
    2^17 warps (a hub), each pair its own owner, p_total 0 and 1,
-   out-of-range columns and parents (the clamps); then ``REPEATS``
-   back-to-back launches of the hub and the K = 40 case, each bit-equal
-   to the first;
+   out-of-range columns and parents (the clamps), and the cases aimed at
+   its frontier summary (``summary_inputs``: K in {1, 3, 16, 32}, one
+   vertex at the first, a middle and the last slot of a summary block;
+   parents at n, n + 1, past the plane and below 0; K = 40 with jobs in
+   the second plane only; every block set; with and without tbits), the
+   summary kernel held bit-equal to its plain version in every case;
+   then ``REPEATS`` back-to-back launches of the hub and the K = 40 case,
+   each bit-equal to the first;
 3. hold the ``seg_scan`` CUDA kernel against its plain PyTorch version on
    the card, for every combine (sum, min, max) and type (float32,
    int32): E in {1, 70, a tile - 1, a tile, a tile + 1, 2^20,
@@ -51,7 +56,10 @@ Phases, each of which raises on failure:
    BFS on the CPU (plain path), and ``frontier_round`` was launched;
    4b: the fused BFS kernel bit-equal to its plain version on the card
    (dist, levels and modes) and to ``frontier_bfs_hybrid``, with the
-   endgame caps JAX's and 1, and cut by ``max_levels`` 1-3;
+   endgame caps JAX's and 1, and cut by ``max_levels`` 1-3, then on the
+   graphs whose counts land on the mode rule's thresholds
+   (``fused_threshold_cases``, the CPU tests' graphs), each taking the
+   mode its counts give;
 5. the vertex-program engine's main path at Graph500 scale 22, edge
    factor 16 (the JAX package's LiveJournal-class PageRank graph):
    ``from_chunked_csr``, upload, then PageRank (alpha 0.85, 20
@@ -92,9 +100,12 @@ Phases, each of which raises on failure:
    version on the card, whose ``levels`` it equals (printed beside the
    hybrid's); each source's wall, TEPS and their harmonic mean beside
    phase 6's, the kernel's ms against its byte bound (``fused_bytes``:
-   the dstT chunks and ``dist`` sectors that each level's decision must
-   read, a bottom-up vertex's chunks up to its first parent) and the
-   plain version's. (The push BFS
+   the dstT chunks and visited-bitmap sectors that each level's decision
+   must read, a bottom-up vertex's chunks up to its first parent; the
+   older model's ``dist`` sectors beside it) and the plain version's,
+   and each source's split (``%globaltimer`` after each of the kernel's
+   grid barriers: each level's mode and the ms of its top, scan and
+   walk_lists). (The push BFS
    at s26 is ``scripts/torch_push_s26.py``'s: its host out-CSR takes
    longer than the smoke can spend.);
 7. the batched ``[K, n]`` BFS on phase 6's graph: the serving layer's
@@ -109,7 +120,9 @@ Phases, each of which raises on failure:
    ``frontier_round`` call replayed twice, as run and with 1% of slots
    tombstoned, then cut to its first 4, 8 and 16 jobs (``k_sweep``); the
    largest cohort sweep replayed (``batched_exhaust`` against its plain
-   version, its time against ``exhaust_bytes``' bound); then at scale 16
+   version, its time against ``exhaust_bytes``' bound; its frontier
+   summary against the summary's plain version and its byte bound, the
+   planes read once); then at scale 16
    the batched BFS on the card
    equals the CPU port under a live overlay with adds and removals, with
    level masks, in a checkpoint and a resume from it, and with jobs
@@ -351,9 +364,11 @@ Phases, each of which raises on failure:
    ``"sharded"``; the block (a second copy of dstT) is freed after.
 
 The line before the last is the ``{"kernels": [...]}`` record of the
-four kernels (each record's ``launches`` sums its paths, listed under
+five kernels (each record's ``launches`` sums its paths, listed under
 ``launches_by_path``; ``seg_scan``'s ``rows`` holds phase 5b's two
-K-row replays); the last
+K-row replays; ``exhaust_summary`` is the sweep's frontier summary, one
+launch before each sweep; ``bfs_fused``'s ``per_source`` holds each
+source's split); the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits 1 and prints no result.
 """
@@ -396,6 +411,11 @@ EXHAUST_KERNEL = {"name": "batched_exhaust", "route": "cuda",
                   "replaces": "titan_tpu/models/bfs_hybrid.py:1070"}
 #: the single-launch BFS: the port's own kernel; its JAX counterpart is
 #: the XLA program of bfs_hybrid_fused.py (one lax.while_loop), not Pallas
+#: the sweep's frontier summary, a launch of its own just before the
+#: sweep in the same file
+SUMMARY_KERNEL = {"name": "exhaust_summary", "route": "cuda",
+                  "source": "titan_tpu_torch/csrc/batched_exhaust.cu",
+                  "replaces": "titan_tpu/models/bfs_hybrid.py:1070"}
 FUSED_KERNEL = {"name": "bfs_fused", "route": "cuda",
                 "source": "titan_tpu_torch/csrc/bfs_fused.cu",
                 "replaces": "titan_tpu/models/bfs_hybrid_fused.py:311"}
@@ -790,9 +810,75 @@ def exhaust_inputs(gen, K, P, Q, nv, c_cap, p_total, kind="random",
                 dstT=dstT, K=K, c_cap=c_cap)
 
 
+def summary_inputs(F, gen, K, kind, masked=False) -> dict:
+    """Sweep inputs aimed at the kernel's frontier summary
+    (``exhaust_summary``): 2^20 vertices, 2^20 pairs over 2^20 columns
+    (owners in sorted runs over 2^16 candidates, the last 99 pairs dead),
+    parents uniform over the vertices and the pad, and the frontier
+    ``kind`` says: "first", "middle", "last" (the last job holds one
+    vertex, that of a summary block in the plane's middle, which 64
+    columns hold as a parent), "clamps" (jobs hold the plane's first and
+    last slots and vertex nv, parents at nv, nv + 1, past the plane and
+    below 0), "second" (only jobs 32 and up, density 0.02), "dense"
+    (density 0.5: every block set)."""
+    dev, nv = "cuda", 1 << 20
+    P = Q = nv
+    Kp, _ = word_bits(K)
+    rbytes = -(-(nv + 2) // 8)
+    slots = 8 * rbytes                   # vertex slots of a plane
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    bits = torch.zeros((K, slots), dtype=torch.bool, device=dev)
+    dstT = ri(0, nv + 2, (8, Q))
+    dstT[:, Q - 1] = nv + 1
+    if kind in ("first", "middle", "last"):
+        nb = rbytes * Kp                 # a plane's bytes
+        sh, _ = F.summary_shape(nb, K)
+        per = (8 << sh) // Kp            # vertices a summary bit
+        v0 = (((nb + (1 << sh) - 1) >> sh) // 2) * per
+        v = {"first": v0, "middle": v0 + per // 2,
+             "last": v0 + per - 1}[kind]
+        bits[K - 1, v] = True
+        dstT[ri(0, 8, (64,)).long(), ri(0, Q - 1, (64,)).long()] = v
+    elif kind == "clamps":
+        bits[0, 0] = bits[K - 1, slots - 1] = bits[K // 2, nv] = True
+        at = ri(0, Q - 1, (256,)).long()
+        for i, par in enumerate((nv, nv + 1, slots + 5, 2**31 - 1, -5,
+                                 -2**31)):
+            dstT[i % 8, at[i::6]] = par
+    elif kind == "second":
+        bits[32:] = torch.rand((K - 32, slots), generator=gen,
+                               device=dev) < 0.02
+    else:
+        bits = torch.rand((K, slots), generator=gen, device=dev) < 0.5
+    bits[:, nv + 1] = False              # the pad, every dead pair's parent
+    cols = ri(0, Q - 1, (P,))
+    cols[P - 99:] = Q - 1
+    return dict(cols=cols, owner=torch.sort(ri(0, 1 << 16, (P,))).values,
+                p_total=torch.tensor(P - 99, dtype=torch.int32, device=dev),
+                fbits=rows_to_words(pack_rows(bits), K),
+                tbits=(torch.randint(0, 256, (Q,), generator=gen,
+                                     device=dev, dtype=torch.uint8)
+                       if masked else None),
+                dstT=dstT, K=K, c_cap=1 << 16)
+
+
+def check_summary(F, e, what: str) -> None:
+    """The summary kernel bit-equal to its plain version on ``e``'s
+    words."""
+    got = F._launch_summary(e["fbits"], e["K"])
+    ref = F.exhaust_summary_reference(e["fbits"], e["K"])
+    check(torch.equal(got, ref), f"exhaust_summary differs from its plain "
+          f"version (K={e['K']}, {what})")
+
+
 def phase_exhaust_cases(F) -> None:
     """``batched_exhaust``'s kernel against its plain version on the card,
-    bit-equal, then back-to-back launches each bit-equal to the first."""
+    bit-equal, then back-to-back launches each bit-equal to the first;
+    its summary kernel bit-equal to the summary's plain version in every
+    case; then the cases aimed at the summary (``summary_inputs``)."""
     gen = torch.Generator(device="cuda").manual_seed(17)
     m = 1 << 20
     # (K, P, Q, nv, c_cap, p_total, kind, tbits given, what)
@@ -812,9 +898,11 @@ def phase_exhaust_cases(F) -> None:
               (16, 100003, 4099, 1000, 4096, 100003, "junk", False,
                "out-of-range columns and parents, every pair live ")]
     launches0 = F.batched_exhaust.launches
+    s_launches0 = F._launch_summary.launches
     k_total = p_total = 0.0
-    for K, P, Q, nv, c_cap, pt, kind, masked, what in cases:
-        e = exhaust_inputs(gen, K, P, Q, nv, c_cap, pt, kind, masked)
+
+    def one(e, what):
+        nonlocal k_total, p_total
         got = exhaust_call(F.batched_exhaust, e)
         ref = exhaust_call(F.batched_exhaust_reference, e)
         torch.cuda.synchronize()
@@ -822,15 +910,36 @@ def phase_exhaust_cases(F) -> None:
         k_ms = cuda_ms(lambda: exhaust_call(F.batched_exhaust, e), 5)
         p_ms = cuda_ms(lambda: exhaust_call(F.batched_exhaust_reference, e),
                        2)
-        say(f"batched_exhaust K={K} P={P} p_total={pt} c_cap={c_cap} "
-            f"{what}({int(got.sum())} candidate bits found): "
+        say(f"batched_exhaust K={e['K']} P={e['cols'].numel()} p_total="
+            f"{int(e['p_total'])} c_cap={e['c_cap']} {what}("
+            f"{int(got.sum())} candidate bits found): "
             f"{'bit-equal' if same else 'DIFFERS'}; kernel {k_ms:.4f} ms, "
             f"plain {p_ms:.4f} ms")
         check(same, "batched_exhaust differs from its plain version")
+        check_summary(F, e, what)
+        k_total, p_total = k_total + k_ms, p_total + p_ms
+        return got
+
+    for K, P, Q, nv, c_cap, pt, kind, masked, what in cases:
+        e = exhaust_inputs(gen, K, P, Q, nv, c_cap, pt, kind, masked)
+        got = one(e, what)
         if pt == 0:
             check(not got.any(), "p_total 0 found a candidate")
-        k_total, p_total = k_total + k_ms, p_total + p_ms
-        del e, got, ref
+        del e, got
+    # (K, frontier, tbits given): the summary's blocks, its clamps, the
+    # second plane alone, every block set
+    aimed = [(K, kind, False) for K in (1, 3, 16, 32)
+             for kind in ("first", "middle", "last")]
+    aimed += [(16, "middle", True), (32, "last", True)]
+    aimed += [(K, "clamps", K in (3, 40)) for K in (1, 3, 16, 32, 40)]
+    aimed += [(40, "second", False), (40, "second", True),
+              (16, "dense", False), (40, "dense", True)]
+    for K, kind, masked in aimed:
+        e = summary_inputs(F, gen, K, kind, masked)
+        got = one(e, f"summary case {kind}{', tbits' if masked else ''} ")
+        check(bool(got.any()) or masked, f"the summary case {kind} at "
+              f"K={K} found nothing: it tests no bit")
+        del e, got
     for K, P, Q, nv, c_cap, pt, kind, masked, _ in (cases[5], cases[3]):
         e = exhaust_inputs(gen, K, P, Q, nv, c_cap, pt, kind, masked)
         runs = [exhaust_call(F._launch_exhaust, e) for _ in range(REPEATS)]
@@ -840,10 +949,15 @@ def phase_exhaust_cases(F) -> None:
         check(same == REPEATS, "back-to-back batched_exhaust runs differ")
         del e, runs
     torch.cuda.empty_cache()
-    say(f"phase 2: batched_exhaust bit-equal to its plain version in "
-        f"{len(cases)}/{len(cases)} cases (tolerance 0: bits) and run to "
-        f"run ({REPEATS} back-to-back launches of the hub and the K = 40 "
-        f"cases), {F.batched_exhaust.launches - launches0} launches; "
+    n = len(cases) + len(aimed)
+    say(f"phase 2: batched_exhaust and its summary bit-equal to their "
+        f"plain versions in {n}/{n} cases ({len(aimed)} aimed at the "
+        f"summary: a vertex at a block's first, middle and last slot, the "
+        f"clamps, the second plane alone, every block set; tolerance 0: "
+        f"bits) and run to run ({REPEATS} back-to-back launches of the hub "
+        f"and the K = 40 cases), "
+        f"{F.batched_exhaust.launches - launches0} sweep and "
+        f"{F._launch_summary.launches - s_launches0} summary launches; "
         f"kernel {k_total:.4f} ms against plain {p_total:.4f} ms, summed "
         f"over one call of each case")
 
@@ -1110,19 +1224,23 @@ def fused_bytes(PF, g, dist, trace) -> dict:
     """The fused BFS's byte bound, worked out from what the function
     reads given its decisions (``trace``, the plain version's) and its
     result (``dist``, validated): each top-down level reads 32 B of dstT
-    for each chunk column of its frontier and one 32 B sector of ``dist``
-    for each distinct sector its neighbours fall in; each bottom-up
-    level, the endgame's included, writes the frontier's bitmap (n/8 B,
-    which L2 holds) and reads it once, and each candidate reads 32 B of
-    dstT a chunk up to and including the first that holds a parent, or
-    all its chunks where it has none; ``dist`` is written once,
-    ``colstart`` and ``degc`` read once. Returns the parts and their
-    ``total``; ``plain`` is what the plain version gathered, for
-    comparison."""
+    for each chunk column of its frontier and tests its neighbours
+    against a visited bitmap (n/8 B), one 32 B sector for each distinct
+    sector they fall in (``vis_td``); each bottom-up level, the endgame's
+    included, writes the frontier's bitmap (n/8 B, which L2 holds) and
+    reads it once, and each candidate reads 32 B of dstT a chunk up to
+    and including the first that holds a parent, or all its chunks where
+    it has none; ``dist`` is written once, ``colstart`` and ``degc`` read
+    once. Returns the parts and the ``bound``; ``total`` is the older
+    model, which tests the neighbours against ``dist`` (one 32 B sector
+    of ``dist`` for each distinct sector, ``dist_td``) and is kept only
+    for comparison with the records taken by it; ``plain`` is what the
+    plain version gathered."""
     n = g["n"]
     degc = g["degc"][:n].long()
     d = dist[:n].long()
     parts = {"dstT_td": 0, "dist_td": 0, "dstT_bu": 0, "bitmaps": 0}
+    vis_td = 0
 
     def bottom_up(level):
         cand = (d > level) & (degc > 0)
@@ -1140,12 +1258,17 @@ def fused_bytes(PF, g, dist, trace) -> dict:
             parts["dstT_td"] += 32 * int(counts.sum())
             seen = torch.zeros(n // 8 + 1, dtype=torch.bool,
                                device=dist.device)
+            seen_vis = torch.zeros(n // 256 + 1, dtype=torch.bool,
+                                   device=dist.device)
             for lo, hi in PF._slices(counts):
                 cols, _ = PF._pairs(g["colstart"][fr[lo:hi]].long(),
                                    counts[lo:hi])
                 nbr = g["dstT"][:, cols].reshape(-1).long()
-                seen[nbr[nbr < n] >> 3] = True
+                nbr = nbr[nbr < n]
+                seen[nbr >> 3] = True
+                seen_vis[nbr >> 8] = True
             parts["dist_td"] += 32 * int(seen.sum())
+            vis_td += 32 * int(seen_vis.sum())
         elif mode == "bu":
             bottom_up(level)
         else:                    # bottom-up levels until one finds nothing
@@ -1154,6 +1277,8 @@ def fused_bytes(PF, g, dist, trace) -> dict:
                 lvl += 1
     parts["once"] = 4 * (n + 2) + 8 * (n + 1)
     parts["total"] = sum(parts.values())
+    parts["vis_td"] = vis_td
+    parts["bound"] = parts["total"] - parts["dist_td"] + vis_td
     parts["plain"] = 32 * sum(c for _, _, c in trace) + parts["once"]
     return parts
 
@@ -1186,18 +1311,118 @@ def check_fused(PF, g, src: int, where: str, max_levels: int = 1000,
     return {"levels": lk, "modes": mk, "trace": trace, "max_abs_err": err}
 
 
+#: graphs whose counts land on the fused BFS's mode rule
+#: (``fused_threshold_cases``): (rule, graph seed, level). "m8f": m8_f ==
+#: m8_unvis // 8 with f > 1 there, a top-down level one chunk short of
+#: bottom-up (seeds found by scanning); "end_c": n_unvis == end_c there,
+#: the endgame's first level; "top_f": f == top_f there, a top-down level
+#: one vertex short of a forced bottom-up one
+FUSED_THRESHOLDS = (("m8f", 97, 1), ("m8f", 212, 1), ("m8f", 326, 2),
+                    ("m8f", 332, 2), ("end_c", 4, 1), ("end_c", 5, 2),
+                    ("top_f", 4, 1), ("top_f", 7, 1))
+
+
+def random_sym_edges(seed: int) -> tuple:
+    """``(n, src, dst)``: tests/test_frontier_models.py's random graph draw
+    for ``seed``, symmetrized."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(80, 400))
+    m = int(rng.integers(2 * n, 8 * n))
+    src = rng.integers(0, n, m).astype(np.int64)
+    dst = rng.integers(0, n, m).astype(np.int64)
+    return n, np.concatenate([src, dst]), np.concatenate([dst, src])
+
+
+def level_counts(degc, dist) -> list:
+    """``[f, m8_f, m8_unvis, n_unvis]`` at the top of each level of a BFS
+    whose distances are ``dist`` (numpy, INF for the unreached), as the
+    fused BFS's mode rule reads them."""
+    dc = np.asarray(degc, np.int64)[:len(dist)]
+    out, level = [], 0
+    while (dist == level).any():
+        fr, un = dist == level, dist > level
+        out.append([int(fr.sum()), int(dc[fr].sum()), int(dc[un].sum()),
+                    int((un & (dc > 0)).sum())])
+        level += 1
+    return out
+
+
+def fused_threshold_cases(from_arrays, PH, device) -> list[dict]:
+    """The ``FUSED_THRESHOLDS`` graphs (``from_arrays`` builds a snapshot
+    of either package) from their first vertex with an edge: each dict's
+    ``snap``, ``g`` (the chunked CSR on ``device``), ``source``, ``level``,
+    its ``counts``, the ``mode`` the rule must take there, and ``caps``:
+    ``END_C_CAP``, ``END_P_CAP`` and the top top-down pair ``top`` (None:
+    the module's) that put the counts on the threshold."""
+    cases = []
+    for rule, seed, level in FUSED_THRESHOLDS:
+        n, src, dst = random_sym_edges(seed)
+        snap = from_arrays(n, src, dst)
+        source = int(np.flatnonzero(np.bincount(src, minlength=n) > 0)[0])
+        g = PH.build_chunked_csr(snap, device)
+        counts = level_counts(g["degc"].cpu().numpy(),
+                              host_bfs(n, src, dst, source))
+        f, m8f, m8u, nu = counts[level]
+        caps, mode = {"END_C_CAP": 1, "END_P_CAP": 1, "top": None}, "td"
+        if rule == "m8f":
+            ok = f > 1 and m8f == m8u // 8
+        elif rule == "end_c":
+            caps.update(END_C_CAP=nu, END_P_CAP=1 << 30)
+            ok, mode = counts[level - 1][3] > nu, "endgame"
+        else:
+            caps["top"] = (f, 1 << 30)
+            ok = not (m8f > m8u // 8 and f > 1)
+        check(ok, f"threshold graph {rule} (seed {seed}) misses its "
+              f"threshold at level {level}: counts {counts[level]}")
+        cases.append({"rule": rule, "seed": seed, "snap": snap, "g": g,
+                      "source": source, "level": level,
+                      "counts": counts[level], "mode": mode, "caps": caps})
+    return cases
+
+
+#: leaves of the star whose centre the fused kernel walks with every
+#: block (more than its grid-list threshold of 2^14 chunks)
+STAR_LEAVES = 140_000
+
+
+def giant_star_cases(from_arrays, PH, device) -> list[dict]:
+    """A star of ``STAR_LEAVES`` leaves round vertex 0, the last leaf also
+    joined to a vertex ``s`` with a second neighbour: from leaf 1
+    (top-down levels expand the centre) and from ``s`` with the top
+    top-down pair at one vertex (level 1 is bottom-up and the centre
+    finds its parent in its last chunk). Each dict as
+    ``fused_threshold_cases``'s, without counts."""
+    m = STAR_LEAVES
+    s = m + 1
+    src = np.concatenate([np.zeros(m, np.int64), [s, s]])
+    dst = np.concatenate([np.arange(1, m + 1), [m, m + 2]])
+    snap = from_arrays(m + 3, np.concatenate([src, dst]),
+                       np.concatenate([dst, src]))
+    g = PH.build_chunked_csr(snap, device)
+    caps = {"END_C_CAP": 1, "END_P_CAP": 1, "top": None}
+    return [{"rule": "star, top-down", "seed": 0, "snap": snap, "g": g,
+             "source": 1, "level": 1, "mode": "td", "caps": caps},
+            {"rule": "star, bottom-up", "seed": 0, "snap": snap, "g": g,
+             "source": s, "level": 1, "mode": "bu",
+             "caps": {**caps, "top": (1, 1 << 30)}}]
+
+
 def phase_fused_small(PF, P, G, card) -> None:
     """Phase 4b at scale 16: the fused kernel against its plain version
     on the card and against frontier_bfs_hybrid, with the JAX endgame
     caps and with them at 1 (every level top-down or bottom-up), and
-    with max_levels cutting the search short."""
+    with max_levels cutting the search short; then on the threshold
+    graphs (``fused_threshold_cases``), whose counts land on the mode
+    rule, with each case's caps."""
+    from titan_tpu_torch.olap import snapshot as SN
+
     hg = G.load_or_build(SMALL_SCALE, EDGE_FACTOR, seed=SEED, verbose=False)
     g = G.graph_from_numpy(hg, "cuda")
-    caps = (PF.END_C_CAP, PF.END_P_CAP)
+    saved = (PF.END_C_CAP, PF.END_P_CAP, PF.FUSED_TD_MAX)
     seen, runs = set(), 0
     try:
         for forced in (False, True):
-            PF.END_C_CAP, PF.END_P_CAP = (1, 1) if forced else caps
+            PF.END_C_CAP, PF.END_P_CAP = (1, 1) if forced else saved[:2]
             for src in sample_sources(hg["deg"], 2):
                 want, _ = P.frontier_bfs_hybrid(g, src, return_device=True)
                 r = check_fused(PF, g, src, f"phase 4b s{SMALL_SCALE}",
@@ -1210,13 +1435,28 @@ def phase_fused_small(PF, P, G, card) -> None:
                 check(r["levels"] <= cut, f"max_levels={cut} gave "
                       f"{r['levels']} levels")
                 runs += 1
+        cases = (fused_threshold_cases(SN.from_arrays, P, "cuda")
+                 + giant_star_cases(SN.from_arrays, P, "cuda"))
+        for c in cases:
+            caps = c["caps"]
+            PF.END_C_CAP, PF.END_P_CAP = caps["END_C_CAP"], caps["END_P_CAP"]
+            PF.FUSED_TD_MAX = caps["top"] or saved[2]
+            r = check_fused(PF, c["g"], c["source"], f"phase 4b threshold "
+                            f"graph {c['rule']} (seed {c['seed']})")
+            check(r["modes"][c["level"]] == c["mode"], f"phase 4b: the "
+                  f"threshold graph {c['rule']} (seed {c['seed']}) took "
+                  f"{r['modes']}, not {c['mode']} at level {c['level']}")
+            runs += 1
     finally:
-        PF.END_C_CAP, PF.END_P_CAP = caps
+        PF.END_C_CAP, PF.END_P_CAP, PF.FUSED_TD_MAX = saved
     check(seen >= {"endgame", "td", "bu"}, f"phase 4b took only {seen}")
     say(f"phase 4b: s{SMALL_SCALE} fused BFS kernel bit-equal to its plain "
         f"version on {card} in {runs} runs (dist, levels, modes; endgame "
-        f"caps JAX's and 1; max_levels 1-3) and to frontier_bfs_hybrid; "
-        f"modes {sorted(seen)}; one launch a BFS")
+        f"caps JAX's and 1; max_levels 1-3; {len(cases) - 2} threshold "
+        f"graphs whose counts land on the mode rule and a star whose centre "
+        f"every block walks, top-down and bottom-up, each taking its mode) "
+        f"and "
+        f"to frontier_bfs_hybrid; modes {sorted(seen)}; one launch a BFS")
 
 
 def phase_fused_main(PF, G, g, hg, per_source, teps6, card) -> dict:
@@ -1257,24 +1497,41 @@ def phase_fused_main(PF, G, g, hg, per_source, teps6, card) -> dict:
         m2, _ = G.reachable_edge_sum(dist[:n], deg_orig, INF,
                                      deg_dev=deg_dev)
         (_, _), k_s = timed(lambda: PF.fused_bfs(g, src))
+        g["_trace_split"] = split = []
+        try:
+            PF.fused_bfs(g, src)
+        finally:
+            del g["_trace_split"]
         parts = fused_bytes(PF, g, dist, trace)
-        nbytes = parts["total"]
-        bounds.append(nbytes / HBM_BYTES_PER_S * 1e3)
+        bounds.append(parts["bound"] / HBM_BYTES_PER_S * 1e3)
         ms.append(k_s * 1e3)
         plain_ms.append(p_s * 1e3)
         out.append({"source": src, "levels": levels,
                     "hybrid_levels": r["levels"],
                     "modes": [m for _, m, _ in trace], "t_bfs": t,
                     "ms": k_s * 1e3, "plain_ms": p_s * 1e3,
-                    "bound_ms": bounds[-1], "bytes": parts,
-                    "m_traversed": m2 // 2, "teps": (m2 // 2) / t})
+                    "bound_ms": bounds[-1],
+                    "dist_model_ms": parts["total"] / HBM_BYTES_PER_S * 1e3,
+                    "bytes": parts,
+                    "m_traversed": m2 // 2, "teps": (m2 // 2) / t,
+                    "split": split[0]})
         del dist, dp
     teps = len(out) / sum(1.0 / o["teps"] for o in out)
     say(f"phase 6b: fused BFS (one cooperative launch a BFS) at s{SCALE} on "
         f"{card}: TEPS {teps:.6g} (harmonic mean over {len(out)} sources, "
         f"best of {REPS}) against phase 6's {teps6:.6g}; dist bit-equal to "
         f"phase 6's validated results and to the plain fused version, whose "
-        f"levels it equals; per source " + json.dumps(out))
+        f"levels it equals; per source " + json.dumps(
+            [{k: v for k, v in o.items() if k != "split"} for o in out]))
+    for o in out:
+        sp = o["split"]
+        say(f"phase 6b: split of the fused kernel from {o['source']} on "
+            f"{card} (%globaltimer after each grid barrier, ms): first "
+            f"pass {sp['init_ms']:.4f}, stamped total {sp['total_ms']:.4f}; "
+            f"by level (mode, top, scan, walk_lists) "
+            + json.dumps([[r["mode"], round(r["top_ms"], 4),
+                           round(r["scan_ms"], 4), round(r["walk_ms"], 4)]
+                          for r in sp["levels"]]))
     del deg_dev
     torch.cuda.empty_cache()
     i = int(np.argmax(ms))
@@ -1283,7 +1540,9 @@ def phase_fused_main(PF, G, g, hg, per_source, teps6, card) -> dict:
             "bound_by": "bytes", "library_ms": None,
             "per_source": [{k: o[k] for k in (
                 "source", "levels", "hybrid_levels", "ms", "plain_ms",
-                "bound_ms", "bytes", "t_bfs", "teps")} for o in out],
+                "bound_ms", "dist_model_ms", "bytes", "t_bfs", "teps",
+                "split")}
+                for o in out],
             "teps": teps}
 
 
@@ -2024,10 +2283,35 @@ def exhaust_replay(F, e) -> dict:
     plain_ms = cuda_ms(lambda: exhaust_call(F.batched_exhaust_reference, e),
                        2)
     work = exhaust_bytes(e)
-    return {"K": e["K"], "P": e["cols"].numel(), "c_cap": e["c_cap"],
-            "found": int(got.sum()), "max_abs_err": 0, "ms": ms,
-            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-            "bound_ms": work["bytes"] / HBM_BYTES_PER_S * 1e3, **work}
+    out = {"K": e["K"], "P": e["cols"].numel(), "c_cap": e["c_cap"],
+           "found": int(got.sum()), "max_abs_err": 0, "ms": ms,
+           "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+           "bound_ms": work["bytes"] / HBM_BYTES_PER_S * 1e3, **work}
+    if hasattr(F, "_launch_summary"):    # a checkout with the summary
+        out["summary"] = summary_replay(F, e["fbits"], e["K"])
+    return out
+
+
+def summary_replay(F, fbits, K: int) -> dict:
+    """The summary kernel on one sweep's words: bit-equal to its plain
+    version, its time and the plain version's (means after a warm-up),
+    its set bits, and its bound: the planes read once, the summary
+    written once."""
+    got = F._launch_summary(fbits, K)
+    ref = F.exhaust_summary_reference(fbits, K)
+    check(torch.equal(got, ref), f"exhaust_summary differs from its plain "
+          f"version (K={K})")
+    sh, nsw = F.summary_shape(fbits.shape[1], K)
+    nbytes = fbits.numel() + 4 * nsw
+    bits = int(((got.long()[:, None] >> torch.arange(32, device=got.device))
+                & 1).sum())
+    return {"ms": cuda_ms(lambda: F._launch_summary(fbits, K), 10,
+                          warmup=2),
+            "plain_ms": cuda_ms(lambda: F.exhaust_summary_reference(
+                fbits, K), 3),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+            "bytes_a_bit": 1 << sh, "bits": -(-fbits.shape[1] >> sh),
+            "bits_set": bits, "max_abs_err": 0}
 
 
 ROUND_ARGS = ("cols", "undec", "has_more", "pay0", "pay1", "fbits", "tbits",
@@ -2421,7 +2705,7 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict, list, dict]:
 
     # ---- the main path (the serving batcher's BFS cohort), counts from 0
     F.frontier_round.launches = 0
-    F.batched_exhaust.launches = 0
+    F.batched_exhaust.launches = F._launch_summary.launches = 0
     torch.cuda.reset_peak_memory_stats()
     base_mem = torch.cuda.memory_allocated()
 
@@ -2436,6 +2720,7 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict, list, dict]:
         _, t_traced = wall_s(cohort)
     launches = F.frontier_round.launches
     x_launches = F.batched_exhaust.launches
+    s_launches = F._launch_summary.launches
     # ---- end of the main path
     peak = torch.cuda.max_memory_allocated()
     per_run = len(tr.calls)
@@ -2491,11 +2776,12 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict, list, dict]:
             g, srcs, max_levels=HOPS_DEPTH + 1, start_level=1,
             on_level=on_level, mode="hops", return_device=True)
     F.frontier_round.launches = 0
-    F.batched_exhaust.launches = 0
+    F.batched_exhaust.launches = F._launch_summary.launches = 0
     hops()
     h_runs = [wall_s(hops) for _ in range(REPS)]
     h_launches = F.frontier_round.launches
     h_x_launches = F.batched_exhaust.launches
+    h_s_launches = F._launch_summary.launches
     # ---- end of the hops path
     (hd, _, _), t_hops = min(h_runs, key=lambda r: r[1])
     check(h_launches > 0, "the hops batch never launched frontier_round")
@@ -2543,6 +2829,16 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict, list, dict]:
         f"[8, Q] {x['dstT_8q']}, [Q, 8] {x['dstT_q8']}; words "
         f"{x['words']}); bound {x['bound_ms']:.4f} ms at 3.35 TB/s, "
         f"{100 * x['bound_ms'] / x['ms']:.1f}% of it")
+    sm = x["summary"]
+    check(s_launches == x_launches and h_s_launches == h_x_launches,
+          f"exhaust_summary launched {s_launches} and {h_s_launches} times "
+          f"beside {x_launches} and {h_x_launches} sweeps")
+    say(f"its frontier summary (exhaust_summary, {sm['bits']} bits of "
+        f"{sm['bytes_a_bit']} B, {sm['bits_set']} set) on {card}: "
+        f"bit-equal to the plain version; kernel {sm['ms']:.4f} ms (inside "
+        f"the sweep's {x['ms']:.4f}), plain {sm['plain_ms']:.4f} ms, bound "
+        f"{sm['bound_ms']:.4f} ms ({sm['bytes']} B), "
+        f"{100 * sm['bound_ms'] / sm['ms']:.1f}% of it")
     del largest
     torch.cuda.empty_cache()
     x_rec = {**EXHAUST_KERNEL, "launches": x_launches + h_x_launches,
@@ -2554,7 +2850,16 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict, list, dict]:
              "replay": {k: x[k] for k in (
                  "K", "P", "live", "c_cap", "found", "ms", "wrapper_ms",
                  "plain_ms", "bound_ms", "bytes", "dstT_8q", "dstT_q8",
-                 "words")}}
+                 "words")},
+             "summary": {**SUMMARY_KERNEL,
+                         "launches": s_launches + h_s_launches,
+                         "max_abs_err": 0, "ms": sm["ms"],
+                         "plain_ms": sm["plain_ms"],
+                         "bound_ms": sm["bound_ms"], "bound_by": "bytes",
+                         "library_ms": None,
+                         "launches_by_path": {"bfs_batched": s_launches,
+                                              "hops": h_s_launches},
+                         "replay": sm}}
     return ([{"replay": name, "K": BATCH_K, **{k: r[k] for k in (
         "source", "call", "C", "nsur", "ms", "plain_ms", "bound_ms",
         "bound_ms_8q", "bound_ms_q8", "bound_ms_rows", "bound_ms_words",
@@ -2852,24 +3157,25 @@ ALLOC_SLACK = 4 * (2 << 20)
 
 
 class ServedLaunches:
-    """The three kernels' launches inside served runs only: each served
-    segment zeroes the counts just before the scheduler runs and reads
-    them just after its last job; direct comparison calls stay out."""
+    """The kernels' launches inside served runs only: each served segment
+    zeroes the counts just before the scheduler runs and reads them just
+    after its last job; direct comparison calls stay out."""
 
     def __init__(self, F, S):
         self.F, self.S = F, S
         self.total = {"frontier_round": 0, "batched_exhaust": 0,
-                      "seg_scan": 0}
+                      "exhaust_summary": 0, "seg_scan": 0}
 
     def run(self, fn):
         F, S = self.F, self.S
         torch.cuda.synchronize()
         F.frontier_round.launches = 0
-        F.batched_exhaust.launches = 0
+        F.batched_exhaust.launches = F._launch_summary.launches = 0
         S.seg_scan.launches = 0
         out = fn()
         self.total["frontier_round"] += F.frontier_round.launches
         self.total["batched_exhaust"] += F.batched_exhaust.launches
+        self.total["exhaust_summary"] += F._launch_summary.launches
         self.total["seg_scan"] += S.seg_scan.launches
         return out
 
@@ -6473,14 +6779,14 @@ def main() -> int:
     rec["launches_by_path"]["sharded"] = sharded_rounds \
         + gloo["frontier_round"]
     seg_rec["launches_by_path"]["sharded"] = sharded_seg + gloo["seg_scan"]
-    x_rec["launches_by_path"].update(
-        serving=served["batched_exhaust"],
-        live=live_runs.total["batched_exhaust"],
-        interactive=lane_runs.total["batched_exhaust"],
-        store=store_runs.total["batched_exhaust"],
-        plane=plane_runs.total["batched_exhaust"])
+    s_rec = x_rec.pop("summary")
+    for r, key in ((x_rec, "batched_exhaust"), (s_rec, "exhaust_summary")):
+        r["launches_by_path"].update(
+            serving=served[key], live=live_runs.total[key],
+            interactive=lane_runs.total[key], store=store_runs.total[key],
+            plane=plane_runs.total[key])
     for r, key in ((rec, "frontier_round"), (seg_rec, "seg_scan"),
-                   (x_rec, "batched_exhaust")):
+                   (x_rec, "batched_exhaust"), (s_rec, "exhaust_summary")):
         r["launches_by_path"]["server"] = server_runs.total[key]
         if fleet_runs.total[key]:
             r["launches_by_path"]["fleet"] = fleet_runs.total[key]
@@ -6488,7 +6794,7 @@ def main() -> int:
             r["launches_by_path"]["host_computer"] = host_runs.total[key]
         r["launches"] = sum(r["launches_by_path"].values())
     fused_rec["launches_by_path"] = {"bfs_fused": fused_rec["launches"]}
-    print(json.dumps({"kernels": [rec, seg_rec, x_rec, fused_rec]}),
+    print(json.dumps({"kernels": [rec, seg_rec, x_rec, s_rec, fused_rec]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

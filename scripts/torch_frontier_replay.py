@@ -17,9 +17,13 @@ written to DIR as JSON.
 With ``--cohort`` it runs chip_smoke.py phase 7's K = 16 cohort instead
 (16 sources by bench.py's rule; one warm-up, then one run traced by
 ``chip_smoke.BatchedTrace``), prints its wall time and per-level split
-(plan, rounds, exhaust), and replays the widest call cut to its first
+(plan, rounds, exhaust), replays the widest call cut to its first
 4, 8 and 16 jobs (``chip_smoke.k_sweep``): the time a job, and the
-frontier sectors and bound under the job-major and the word layout.
+frontier sectors and bound under the job-major and the word layout, and
+prints each ``batched_exhaust`` call's device ms and replays the largest
+(``chip_smoke.exhaust_replay``: bit-equal to the plain version, its
+time against ``exhaust_bytes``' bound, and the frontier summary's where
+the checkout has one).
 
 It imports the ``titan_tpu_torch`` and ``chip_smoke.py`` of the
 checkout it lies in. To time another commit's kernel at the same calls
@@ -55,13 +59,22 @@ def cohort(CS, P, F, g, hg, card, out) -> int:
           f"{tr.p_cap}; per level (device ms): {json.dumps(split)}",
           flush=True)
     sweep = CS.k_sweep(F, {**tr.widest, "source": "cohort"}, card)
+    sweeps = tr.sweep_ms()
+    x = CS.exhaust_replay(F, tr.largest)
+    print(f"{ROOT} on {card}: batched_exhaust calls of the traced run "
+          f"(device ms, wrapper included) {json.dumps(sweeps)}; the largest "
+          f"(call {tr.largest['index']}, {x['live']} live pairs, "
+          f"{x['found']} candidate bits) replayed: {x['ms']:.4f} ms, "
+          f"bit-equal to the plain version ({x['plain_ms']:.4f} ms), bound "
+          f"{x['bound_ms']:.4f} ms; summary "
+          + json.dumps(x.get("summary")), flush=True)
     if out:
         os.makedirs(out, exist_ok=True)
         with open(os.path.join(out, "cohort_sweep.json"), "w") as f:
             json.dump({"root": ROOT, "card": card, "seconds": seconds,
                        "split": split, "p_cap": tr.p_cap,
-                       "kernel_ms": tr.kernel_ms(), "sweep": sweep}, f,
-                      indent=1)
+                       "kernel_ms": tr.kernel_ms(), "sweep": sweep,
+                       "exhaust_ms": sweeps, "exhaust": x}, f, indent=1)
     return 0
 
 

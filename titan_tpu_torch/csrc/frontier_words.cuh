@@ -60,6 +60,16 @@ __device__ __forceinline__ uint32_t word_of_t(
           int(bit & 7)) & ((1u << (1 << kp_log)) - 1u);
 }
 
+// The byte of a plane of nb bytes at which word_of_t's load for `par`
+// starts, with its clamps: the word lies in [word_byte, word_byte +
+// max(Kp / 8, 1)). batched_exhaust.cu's summary keys on it.
+__device__ __forceinline__ int64_t word_byte(int64_t nb, int kp_log,
+                                             int32_t par) {
+  if (kp_log >= 3)
+    return clamp64(par, 0, (nb >> (kp_log - 3)) - 1) << (kp_log - 3);
+  return clamp64((int64_t(par) * (1 << kp_log)) >> 3, 0, nb - 1);
+}
+
 __device__ __forceinline__ uint32_t word_of(const uint8_t* __restrict__ plane,
                                             int64_t nb, int kp_log,
                                             int32_t par) {

@@ -47,7 +47,11 @@ Tracing: when the graph dict holds a list under ``"_trace_modes"``, the
 plain version appends ``(level, mode, chunks)`` for each decision
 (``mode`` one of ``MODES``, ``chunks`` the chunk columns whose dstT
 column it gathered), and the kernel's wrapper appends ``(level, mode,
-None)`` from the modes the kernel recorded.
+None)`` from the modes the kernel recorded. When it holds a list under
+``"_trace_split"``, the kernel's wrapper hands the kernel a stamp buffer
+and appends the launch's split (``level_split``: each level's mode and
+the ms of its passes, from ``%globaltimer`` after each grid barrier);
+the plain version appends nothing.
 """
 
 from __future__ import annotations
@@ -238,10 +242,11 @@ def kernel_library() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.tt_bfs_fused.restype = i32
     lib.tt_bfs_fused.argtypes = (
-        [p] * 8                      # dist dstT colstart degc fbits lists ctr info
-        + [i64] * 7                  # n Q nwords end_c end_p top_f top_p
-        + [i32, i32, p])             # max_lv mode_cap stream
+        [p] * 10                     # dist dstT colstart degc bits work giant ctr info stamps
+        + [i64] * 8                  # n Q nwords source end_c end_p top_f top_p
+        + [i32, i32, i64, p])        # max_lv mode_cap stamp_cap stream
     lib.tt_bfs_fused_counters.restype = i32
+    lib.tt_bfs_fused_giant.restype = i32
     lib.tt_bfs_fused_grid.restype = i32
     return lib
 
@@ -270,17 +275,28 @@ def _launch(g, source: int, max_levels: int):
     dist = torch.full((n_ + 2,), INF, dtype=torch.int32, device=dev)
     dist[source] = 0
     nwords = -(-(n_ + 2) // 32)
-    fbits = torch.empty(nwords, dtype=torch.int32, device=dev)
-    lists = torch.empty((3, n_), dtype=torch.int32, device=dev)
+    # the visited, no-chunk and three frontier bitmaps (42 MB at scale 26)
+    bits = torch.zeros((5, nwords), dtype=torch.int32, device=dev)
+    # the warp list from the front, the block list from the back; the
+    # grid list (each of its vertices has more than giant chunks)
+    work = torch.empty(n_, dtype=torch.int32, device=dev)
+    giant = torch.empty(Q // lib.tt_bfs_fused_giant() + 1,
+                        dtype=torch.int32, device=dev)
     ctr = torch.zeros(lib.tt_bfs_fused_counters(), dtype=torch.int64,
                       device=dev)
     info = torch.zeros(2 + MODE_CAP, dtype=torch.int32, device=dev)
+    split = g.get("_trace_split")
+    stamps = (None if split is None else
+              torch.zeros(3 + 3 * MODE_CAP, dtype=torch.int64, device=dev))
     max_lv = max(min(int(max_levels), 2**31 - 2), 0)
     err = lib.tt_bfs_fused(
         dist.data_ptr(), dstT.data_ptr(), colstart.data_ptr(),
-        degc.data_ptr(), fbits.data_ptr(), lists.data_ptr(), ctr.data_ptr(),
-        info.data_ptr(), n_, Q, nwords, end_c, end_p, top[0], top[1],
-        max_lv, MODE_CAP, torch.cuda.current_stream(dev).cuda_stream)
+        degc.data_ptr(), bits.data_ptr(), work.data_ptr(), giant.data_ptr(),
+        ctr.data_ptr(), info.data_ptr(),
+        None if stamps is None else stamps.data_ptr(), n_, Q, nwords,
+        source, end_c, end_p, top[0], top[1], max_lv, MODE_CAP,
+        0 if stamps is None else stamps.numel(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{who}: CUDA error {err} at launch (a "
                            "cooperative launch needs every block resident)")
@@ -290,7 +306,29 @@ def _launch(g, source: int, max_levels: int):
     trace = g.get("_trace_modes")
     if trace is not None:
         trace.extend((None, MODES[m], None) for m in out[2:2 + nrec])
+    if split is not None:
+        split.append(level_split(stamps.tolist(), out[2:2 + nrec]))
     return dist, levels
+
+
+def level_split(stamps, modes) -> dict:
+    """The kernel's ``%globaltimer`` stamps (ns) as ms: its first pass
+    (``init_ms``), then a level at a time its mode (the recorded
+    decisions; the endgame's later levels record none) and the time of
+    its phases: ``top_ms`` from the last barrier to the level's top (the
+    decision and the clearing of a frontier bitmap), ``scan_ms`` and
+    ``walk_ms`` (``walk_lists``)."""
+    ran = min(int(stamps[0]), (len(stamps) - 3) // 3)
+    rows, prev = [], stamps[2]
+    for e in range(ran):
+        t = stamps[3 + 3 * e:6 + 3 * e]
+        rows.append({"mode": MODES[modes[e]] if e < len(modes) else MODES[0],
+                     "top_ms": (t[0] - prev) / 1e6,
+                     "scan_ms": (t[1] - t[0]) / 1e6,
+                     "walk_ms": (t[2] - t[1]) / 1e6})
+        prev = t[2]
+    return {"init_ms": (stamps[2] - stamps[1]) / 1e6, "levels": rows,
+            "total_ms": (prev - stamps[1]) / 1e6}
 
 
 def fused_bfs(g, source: int, max_levels: int = 1000):

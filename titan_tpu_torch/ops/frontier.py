@@ -36,9 +36,14 @@ when they lie on a card; there is no other route. The kernels are built
 with ``nvcc`` at first use and bound with ctypes. The round is one
 launch, a persistent pass that ranks survivors by decoupled look-back
 between tiles, after the wrapper zeroes its scratch (the tile statuses
-and a ticket counter); the sweep is one persistent launch into a zeroed
-``[G, c_cap]`` word array. Both wrappers are ``obs/devprof`` seams
-(``frontier_round``, ``batched_exhaust``).
+and a ticket counter); the sweep is two: the frontier summary
+(``_launch_summary``, plain version ``exhaust_summary_reference``: one
+bit for each block of ``2^sh`` bytes of the planes, set where some plane
+holds a nonzero byte there), then one
+persistent pass into a zeroed ``[G, c_cap]`` word array that loads a
+parent's word only where the summary's bit is set. Both wrappers are
+``obs/devprof`` seams (``frontier_round``, ``batched_exhaust``, which
+covers the summary's launch).
 """
 
 from __future__ import annotations
@@ -58,6 +63,9 @@ from titan_tpu_torch.ops.compaction import scatter_compact
 #: [K, slice] job bits stay a few hundred MB at K = 16 however many
 #: chunks the stragglers have left
 EXHAUST_SLICE = 1 << 22
+#: the sweep's frontier summary has at most this many bits (32 KB, held
+#: in each block's shared memory; ``csrc/batched_exhaust.cu``'s cap)
+SUMMARY_BITS = 1 << 18
 
 
 @functools.cache
@@ -82,9 +90,11 @@ def exhaust_library() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.tt_batched_exhaust.restype = i32
     lib.tt_batched_exhaust.argtypes = (
-        [p] * 6                      # cols owner p_total fbits tbits dstT
+        [p] * 7                      # cols owner p_total fbits tbits dstT summ
         + [i64, i32, i64, i64, i64, i64]  # P K Q nb tb c_cap
-        + [p, p])                    # out stream
+        + [i32, i64, p, p])          # sh nsw out stream
+    lib.tt_exhaust_summary.restype = i32
+    lib.tt_exhaust_summary.argtypes = [p, i32, i64, i32, i64, p, p]
     return lib
 
 
@@ -294,9 +304,66 @@ def batched_exhaust_reference(cols, owner, p_total, fbits, tbits, dstT, *,
     return acc[:, :c_cap] > 0
 
 
+def summary_shape(nb: int, K: int) -> tuple[int, int]:
+    """``(sh, nsw)`` of the sweep's frontier summary over planes of
+    ``nb`` bytes: ``2^sh`` bytes a bit, the least power of two at or
+    above a word's bytes that covers a plane in ``SUMMARY_BITS`` bits,
+    and the summary's int32 words."""
+    sh = (max(word_bits(K)[0] // 8, 1)).bit_length() - 1
+    while (nb + (1 << sh) - 1) >> sh > SUMMARY_BITS:
+        sh += 1
+    return sh, -(-((nb + (1 << sh) - 1) >> sh) // 32)
+
+
+def exhaust_summary_reference(fbits, K: int):
+    """Plain PyTorch version of the summary: int32 ``[nsw]``, bit ``s``
+    (bit ``s % 32`` of word ``s // 32``) set when some byte of
+    ``[s << sh, (s + 1) << sh)`` of some plane of ``fbits`` is nonzero
+    (``summary_shape``)."""
+    nb = fbits.shape[1]
+    sh, nsw = summary_shape(nb, K)
+    nz = torch.zeros(nsw * 32 << sh, dtype=torch.bool, device=fbits.device)
+    nz[:nb] = (fbits != 0).any(dim=0)
+    bits = nz.view(nsw, 32, 1 << sh).any(dim=2).to(torch.int64)
+    weight = torch.ones(32, dtype=torch.int64, device=fbits.device) \
+        << torch.arange(32, device=fbits.device)
+    weight[31] = -(1 << 31)          # bit 31 is the int32 sign bit
+    return (bits * weight).sum(dim=1).to(torch.int32)
+
+
+def _launch_summary(fbits, K: int):
+    """One launch of ``csrc/batched_exhaust.cu``'s summary kernel over the
+    K jobs' words (``fbits`` [G, nb] uint8, on a card): int32 ``[nsw]``,
+    the bits ``exhaust_summary_reference`` sets. The sweep's wrapper
+    launches it just before the sweep; the CPU sweep needs none."""
+    who = "exhaust_summary"
+    dev = fbits.device
+    if dev.type != "cuda" or K < 1:
+        raise ValueError(f"{who}: K={K} on {dev}; the kernel takes CUDA "
+                         "tensors and K >= 1")
+    Kp, G = word_bits(K)
+    _check(who, "fbits", fbits, torch.uint8, (G, fbits.shape[1]), dev)
+    if fbits.shape[1] < 1 or fbits.shape[1] % max(Kp // 8, 1):
+        raise ValueError(f"{who}: a plane of {fbits.shape[1]} bytes holds "
+                         f"no whole number of {Kp}-bit words")
+    sh, nsw = summary_shape(fbits.shape[1], K)
+    out = torch.empty(nsw, dtype=torch.int32, device=dev)
+    err = exhaust_library().tt_exhaust_summary(
+        fbits.data_ptr(), K, fbits.shape[1], sh, nsw, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{who}: CUDA error {err} at launch")
+    _launch_summary.launches += 1
+    return out
+
+
+#: summary launches so far
+_launch_summary.launches = 0
+
+
 def _launch_exhaust(cols, owner, p_total, fbits, tbits, dstT, K, c_cap):
     """The kernel's ``[G, c_cap]`` int32 job words (the wrapper expands
-    them)."""
+    them), after the summary's launch."""
     who = "batched_exhaust"
     Q = _check_words(who, fbits, tbits, dstT, K)
     dev = dstT.device
@@ -309,16 +376,19 @@ def _launch_exhaust(cols, owner, p_total, fbits, tbits, dstT, K, c_cap):
     lib = exhaust_library()
     out = torch.zeros((fbits.shape[0], c_cap), dtype=torch.int32,
                       device=dev)
+    if P == 0:                      # at P = 0 nothing is launched
+        return out
+    sh, nsw = summary_shape(fbits.shape[1], K)
+    summ = _launch_summary(fbits, K)
     err = lib.tt_batched_exhaust(
         cols.data_ptr(), owner.data_ptr(), p_total.data_ptr(),
         fbits.data_ptr(), None if tbits is None else tbits.data_ptr(),
-        dstT.data_ptr(), P, K, Q, fbits.shape[1],
-        0 if tbits is None else tbits.shape[0], c_cap, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        dstT.data_ptr(), summ.data_ptr(), P, K, Q, fbits.shape[1],
+        0 if tbits is None else tbits.shape[0], c_cap, sh, nsw,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{who}: CUDA error {err} at launch")
-    if P > 0:                       # at P = 0 nothing is launched
-        batched_exhaust.launches += 1
+    batched_exhaust.launches += 1
     return out
 
 

@@ -361,7 +361,22 @@ Phases, each of which raises on failure:
    one and ``levels`` equal, best of 3 after a call that packs and
    uploads the block, the ratio to phase 6's time, the profile's
    dispatches and retries by level; its ``frontier_round`` launches under
-   ``"sharded"``; the block (a second copy of dstT) is freed after.
+   ``"sharded"``; the block (a second copy of dstT) is freed after;
+20. the serving plane's ``mesh=`` at s22 (right after phase 10, on
+   phase 5's snapshot; ``phase_mesh_s22``): for a ``local_mesh`` of 2,
+   then 3 blocks sharing ``cuda:0`` (``MESH_SHARDS``), and of every card
+   when there are several: the snapshot placed (``place_batched_csr``;
+   each block's bytes against the card's ``memory_allocated`` growth);
+   the K = 16 batch of phase 10's sources served through
+   ``JobScheduler(mesh=)``, every row bit-equal to the direct one-device
+   ``frontier_bfs_batched``, its run spans ``meshed`` = D, the ledger's
+   resident bytes equal to ``meshed_snapshot_csr_bytes``, its wall beside
+   phase 10's direct and served walls and a direct placed call's, the
+   frontier words copied a level; a BFS crashed at level 2 and resumed
+   from its checkpoint on the mesh, equal; then direct placed calls each
+   equal to the one-device call: hops mode with level masks, jobs dropped
+   by ``on_level``, an ``init_dist`` resume. The served runs' launches
+   are ``launches_by_path["mesh"]``.
 
 The line before the last is the ``{"kernels": [...]}`` record of the
 five kernels (each record's ``launches`` sums its paths, listed under
@@ -3490,6 +3505,196 @@ def phase_serving_s22(F, P, FR, S, ref, card) -> dict:
     return {"launches": launches.total, "served_s": served_s,
             "direct_s": direct_s, "k1_s": lat1, "profile_on_s": on_s,
             "profile_off_s": off_s}
+
+
+#: phase 20's meshes on the one card: this many blocks share cuda:0
+MESH_SHARDS = (2, 3)
+
+
+def run_spans(sched, job) -> list:
+    """The attributes of a served job's ``run`` spans."""
+    out = []
+
+    def walk(node):
+        if node["name"] == "run":
+            out.append(node.get("attrs", {}))
+        for c in node["children"]:
+            walk(c)
+    for root in sched.tracer.tree(job.id)["spans"]:
+        walk(root)
+    return out
+
+
+def same_rows(got, want, what: str) -> None:
+    """``(dist, levels, completed)`` of two batched runs, bit-equal."""
+    check(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+          and np.array_equal(got[2], want[2]), f"{what}: rows, levels or "
+          f"completion differ from the one-device run")
+
+
+def phase_mesh_s22(F, P, S, ref, card, phase10) -> dict:
+    """Phase 20 at s22, on phase 5's snapshot: the serving plane's
+    ``mesh=``. For each ``local_mesh`` (``MESH_SHARDS`` blocks on cuda:0,
+    then every card when there are several): the snapshot placed
+    (``place_batched_csr``; each block's bytes and the allocator's growth
+    on each card), the K = 16 batch served through ``JobScheduler(mesh=)``
+    bit-equal row by row to the direct one-device ``frontier_bfs_batched``
+    (its wall beside phase 10's direct and served walls), the run spans'
+    ``meshed``, the ledger's resident bytes equal to
+    ``meshed_snapshot_csr_bytes``, a BFS crashed at level 2 and resumed
+    from its checkpoint on the mesh; then direct placed calls each equal
+    to the one-device call: hops mode with level masks, a job dropped by
+    ``on_level``, an ``init_dist`` resume. Returns the served runs'
+    launches (``launches_by_path["mesh"]``)."""
+    from titan_tpu_torch.olap.api import JobSpec
+    from titan_tpu_torch.olap.recovery import FaultPlan
+    from titan_tpu_torch.olap.serving import JobScheduler
+    from titan_tpu_torch.olap.serving.hbm import meshed_snapshot_csr_bytes
+    from titan_tpu_torch.parallel import partition as PP
+    from titan_tpu_torch.parallel.mesh import local_mesh
+    from titan_tpu_torch.utils.metrics import MetricManager
+
+    snap, hg = ref["snap"], ref["hg"]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".bench_cache", "mesh_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    srcs = sample_sources(hg["deg"], BATCH_K)
+    specs = [JobSpec(kind="bfs", params={"source_dense": s}) for s in srcs]
+    launches = ServedLaunches(F, S)
+    # the one-device references, on the snapshot's cached chunked CSR
+    direct = P.frontier_bfs_batched(snap, srcs)
+    _, direct_s = wall_s(lambda: P.frontier_bfs_batched(snap, srcs))
+    for k, s in enumerate(srcs):
+        check(np.array_equal(direct[0][k], ref["bfs_rows"][s]), f"direct "
+              f"row {k} differs from frontier_bfs_hybrid")
+    q_total = P.build_chunked_csr(snap)["q_total"]
+    lm = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, q_total, dtype=np.uint8)).cuda()
+    hops_kw = dict(mode="hops", start_level=1, max_levels=4,
+                   level_masks=[lm, None, lm])
+    hops_ref = P.frontier_bfs_batched(snap, srcs, **hops_kw)
+    check(not np.array_equal(hops_ref[0], P.frontier_bfs_batched(
+        snap, srcs, mode="hops", start_level=1, max_levels=4)[0]),
+        "the level masks changed no hop set")
+
+    def on_level(level, nf):
+        keep = np.ones(len(nf), bool)
+        keep[1], keep[3] = level < 2, level < 3
+        return keep
+    drop_ref = P.frontier_bfs_batched(snap, srcs, on_level=on_level)
+    check(not drop_ref[2][1] and not drop_ref[2][3], "on_level dropped "
+          "no job")
+    part = P.frontier_bfs_batched(snap, srcs, max_levels=2)[0]
+    meshes = [local_mesh(["cuda:0"] * d) for d in MESH_SHARDS]
+    if torch.cuda.device_count() > 1:
+        meshes.append(local_mesh())
+    out = []
+    try:
+        for mesh in meshes:
+            D = mesh.size
+            cards = sorted(set(mesh.devices), key=str)
+            for d in cards:
+                torch.cuda.synchronize(d)
+            a0 = {d: torch.cuda.memory_allocated(d) for d in cards}
+            placed, place_s = wall_s(lambda: PP.place_batched_csr(snap,
+                                                                  mesh))
+            grew = {str(d): torch.cuda.memory_allocated(d) - a0[d]
+                    for d in cards}
+            blocks = [{"device": str(sh["device"]), "vertices":
+                       [sh["lo"], sh["hi"]], "columns": sh["q_total"],
+                       "bytes": sum(sh[k].numel() * sh[k].element_size()
+                                    for k in ("dstT", "colstart", "degc"))}
+                      for sh in placed["_shards"]]
+            for d in cards:
+                mine = [b["bytes"] for b in blocks if b["device"] == str(d)]
+                check(0 <= grew[str(d)] - sum(mine)
+                      < ALLOC_SLACK * len(mine), f"the blocks on {d} hold "
+                      f"{mine} bytes, its memory_allocated grew "
+                      f"{grew[str(d)]}")
+            sched = JobScheduler(snapshot=snap, mesh=mesh,
+                                 device=mesh.devices[0], checkpoint_dir=root,
+                                 autostart=False, max_batch=BATCH_K,
+                                 metrics=MetricManager())
+            try:
+                jobs, served_s = launches.run(lambda: serve(sched, specs))
+                copied = {k: list(v) for k, v in
+                          P.LAST_WORDS_COPIED.items()}
+                for k, j in enumerate(jobs):
+                    check(j.state.value == "done" and j.batch_k == BATCH_K,
+                          f"meshed BFS job {k}: {j.state.value}, batch_k "
+                          f"{j.batch_k}, {j.error}")
+                    check(np.array_equal(j.result["dist"], direct[0][k])
+                          and j.result["levels"] == direct[1][k],
+                          f"served meshed row {k} (D={D}) differs from "
+                          f"the direct one-device call")
+                    check([sp.get("meshed") for sp in run_spans(sched, j)]
+                          == [D], f"job {k}'s run spans do not say meshed "
+                          f"{D}")
+                resident = sched.ledger.resident_bytes()
+                per_dev = meshed_snapshot_csr_bytes(snap, D)
+                check(resident == per_dev, f"ledger resident {resident}, "
+                      f"meshed_snapshot_csr_bytes {per_dev}")
+                rec = JobSpec(kind="bfs", params={
+                    "source_dense": srcs[1],
+                    "faults": FaultPlan(crash_at_round=2)},
+                    checkpoint_every=1, max_retries=1,
+                    retry_backoff_s=0.01)
+                (rj,), rec_s = launches.run(lambda: serve(sched, [rec]))
+                check(rj.state.value == "done" and rj.attempt == 2
+                      and rj.rounds_replayed is not None
+                      and np.array_equal(rj.result["dist"], direct[0][1]),
+                      f"the crashed meshed job: {rj.state.value}, attempt "
+                      f"{rj.attempt}, {rj.error}")
+                check(sched._metrics.counter_value(
+                    "serving.recovery.resumes") == 1, "the crashed meshed "
+                    "job did not resume from its checkpoint")
+            finally:
+                sched.close()
+            same_rows(P.frontier_bfs_batched(placed, srcs, **hops_kw),
+                      hops_ref, f"D={D} hops with level masks")
+            same_rows(P.frontier_bfs_batched(placed, srcs,
+                                             on_level=on_level),
+                      drop_ref, f"D={D} on_level drops")
+            same_rows(P.frontier_bfs_batched(placed, srcs, init_dist=part,
+                                             start_level=2),
+                      direct, f"D={D} init_dist resume")
+            (_, _, _), placed_s = wall_s(lambda: P.frontier_bfs_batched(
+                placed, srcs))
+            r = {"blocks_on": [str(d) for d in mesh.devices],
+                 "blocks": blocks, "allocated_growth": grew,
+                 "place_s": place_s, "served_s": served_s,
+                 "direct_placed_s": placed_s, "recovered_s": rec_s,
+                 "words_copied": copied, "ledger_resident": resident}
+            out.append(r)
+            say(f"phase 20: D={D} blocks on {r['blocks_on']} at "
+                f"s{ENGINE_SCALE} on {card}: placed in {place_s:.4f} s "
+                f"(host layout and upload), blocks {blocks}, "
+                f"memory_allocated grew {grew}; served K={BATCH_K} batch "
+                f"{served_s:.4f} s from the first submit to the last result, "
+                f"every row bit-equal to the direct one-device call, run "
+                f"spans meshed={D}, ledger resident {resident} = "
+                f"meshed_snapshot_csr_bytes; a direct placed call "
+                f"{placed_s:.4f} s against {direct_s:.4f} s on one device "
+                f"(phase 10: direct {phase10['direct_s']:.4f} s, served "
+                f"{phase10['served_s']:.4f} s); frontier words copied a "
+                f"level {copied['bytes']} B (between cards "
+                f"{copied['between_devices']}); a BFS crashed at level 2 "
+                f"resumed from its checkpoint on attempt 2 in {rec_s:.4f} "
+                f"s, equal; hops with level masks, on_level drops and an "
+                f"init_dist resume equal to the one-device calls")
+            del placed
+            delattr(snap, PP.MESH_CACHE)
+            torch.cuda.empty_cache()
+    finally:
+        if hasattr(snap, PP.MESH_CACHE):
+            delattr(snap, PP.MESH_CACHE)
+        shutil.rmtree(root, ignore_errors=True)
+    check(launches.total["frontier_round"] > 0
+          and launches.total["batched_exhaust"] > 0, f"a kernel was never "
+          f"launched on the mesh path: {launches.total}")
+    say(f"phase 20: mesh launches {launches.total}; records "
+        + json.dumps(out))
+    return {"launches": launches.total, "runs": out}
 
 
 # ---- phase 11: the live plane's epoch merge and the interactive lane
@@ -6695,6 +6900,7 @@ def main() -> int:
     phase_push_s22(PB, P, PF, G, ref, card)
     phase10 = phase_serving_s22(F, P, FR, S, ref, card)
     served = phase10["launches"]
+    meshed = phase_mesh_s22(F, P, S, ref, card, phase10)["launches"]
     seg_rec["launches_by_path"]["serving"] = served["seg_scan"]
     live_runs, lane_runs = ServedLaunches(F, S), ServedLaunches(F, S)
     live = phase_live_s22(P, SN, OV, EM, ref, card, live_runs)
@@ -6768,6 +6974,7 @@ def main() -> int:
                                "wcc_peel_s22": peel22,
                                "wcc_peel_s26": peel26,
                                "serving": served["frontier_round"],
+                               "mesh": meshed["frontier_round"],
                                "live": live_runs.total["frontier_round"],
                                "interactive":
                                    lane_runs.total["frontier_round"]}
@@ -6782,7 +6989,7 @@ def main() -> int:
     s_rec = x_rec.pop("summary")
     for r, key in ((x_rec, "batched_exhaust"), (s_rec, "exhaust_summary")):
         r["launches_by_path"].update(
-            serving=served[key], live=live_runs.total[key],
+            serving=served[key], mesh=meshed[key], live=live_runs.total[key],
             interactive=lane_runs.total[key], store=store_runs.total[key],
             plane=plane_runs.total[key])
     for r, key in ((rec, "frontier_round"), (seg_rec, "seg_scan"),

@@ -248,11 +248,14 @@ def test_2_31_edges_are_refused_like_jax():
 
 def test_sharded_entry_points_name_item_9():
     """The sharded entry points are ported: they run over a mesh, which
-    needs an initialised process group (none here). Only the serving
-    plane's mesh-placed cohort, item 9b, still names item 9."""
+    needs an initialised process group (none here). The serving plane's
+    mesh-placed cohort, item 9b, is ported too: it takes a one-process
+    ``LocalMesh``, never a rank's ``VertexMesh``, and its rows equal the
+    one-device run's."""
     from titan_tpu_torch.models.bfs_hybrid import (build_chunked_csr,
                                                    frontier_bfs_batched)
-    from titan_tpu_torch.parallel.mesh import vertex_mesh
+    from titan_tpu_torch.parallel.mesh import (VertexMesh, local_mesh,
+                                               vertex_mesh)
     from titan_tpu_torch.parallel.partition import place_batched_csr
 
     snap, _, _ = _random(0)
@@ -262,11 +265,13 @@ def test_sharded_entry_points_name_item_9():
         PE.GPUGraphComputer(snapshot=snap, device="cpu", num_devices=2) \
             .run(PB.BFS(), {"source_dense": 0})
     g = build_chunked_csr(snap, "cpu")
-    for call in (lambda: place_batched_csr(snap, None),
-                 lambda: frontier_bfs_batched({**g, "_state_sharding": 1},
-                                              [0], device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    for mesh in (None, VertexMesh(0, 2, torch.device("cpu"), "gloo")):
+        with pytest.raises(TypeError, match="LocalMesh"):
+            place_batched_csr(snap, mesh)
+    placed = place_batched_csr(g, local_mesh(["cpu"] * 3))
+    got = frontier_bfs_batched(placed, [0, 1], device="cpu")
+    for a, b in zip(frontier_bfs_batched(g, [0, 1], device="cpu"), got):
+        assert np.array_equal(a, b)
 
 
 def test_caches_are_the_port_s_own_on_a_shared_snapshot():

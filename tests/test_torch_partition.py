@@ -176,10 +176,41 @@ def test_device_graph_dicts_are_refused():
 
 
 def test_the_mesh_placed_cohort_is_item_9b():
-    for fn in (lambda: P.batched_state_sharding(None),
-               lambda: P.place_batched_csr({}, None)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fn()
+    """Item 9b is ported: ``place_batched_csr`` cuts the vertices into
+    blocks that cover [0, n], start on byte boundaries of the frontier
+    words (multiples of 8 vertices) and hold their own columns, and
+    caches the placement per mesh."""
+    from titan_tpu_torch.parallel.mesh import local_mesh
+
+    js, ps = _pair("serving")
+    n = ps.n
+    dstT, colstart, _, _ = chunked_layout(*ps.out_csr(),
+                                          ps.out_degree.astype(np.int64), n)
+    for D in SHARDS:
+        mesh = local_mesh(["cpu"] * D)
+        placed = P.place_batched_csr(ps, mesh)
+        assert P.place_batched_csr(ps, mesh) is placed
+        assert placed["_state_sharding"] == P.batched_state_sharding(mesh)
+        shards = placed["_shards"]
+        assert shards[0]["lo"] == 0 and shards[-1]["hi"] == n
+        for a, b in zip(shards, shards[1:]):
+            assert a["hi"] == b["lo"] and b["lo"] % P.BLOCK_ALIGN == 0
+        for sh in shards:
+            lo, hi, c0 = sh["lo"], sh["hi"], sh["c0"]
+            q = int(colstart[hi] - colstart[lo])
+            assert c0 == colstart[lo] and sh["dstT"].shape == (8, q + 1)
+            assert np.array_equal(sh["dstT"][:, :q].numpy(),
+                                  dstT[:, c0:c0 + q])
+            assert (sh["dstT"][:, q] == n + 1).all()
+            assert np.array_equal(sh["colstart"].numpy(),
+                                  colstart[lo:hi + 1] - c0)
+        assert set(getattr(ps, P.MESH_CACHE)) >= {mesh}
+    # a second mesh of the same devices is the same key
+    assert P.place_batched_csr(ps, local_mesh(["cpu"] * 2)) \
+        is P.place_batched_csr(ps, local_mesh(["cpu"] * 2))
+    ps._invalidate_layout_caches()        # refresh() and apply_changes
+
+    assert getattr(ps, P.MESH_CACHE) == {}
 
 
 # ------------------------------------------------- gloo ranks on the CPU

@@ -24,6 +24,7 @@ from titan_tpu_torch.olap import snapshot as PS
 from titan_tpu_torch.olap.serving import JobScheduler, JobState
 from titan_tpu_torch.olap.serving.jobs import Job
 from titan_tpu_torch.olap.serving.pool import SnapshotPool
+from titan_tpu_torch.parallel.mesh import local_mesh
 from titan_tpu_torch.utils.metrics import MetricManager
 
 WAIT = 60
@@ -182,13 +183,28 @@ def test_pool_leases_the_live_planes_pairs():
 
 
 @pytest.mark.parametrize("kw,item", [
-    pytest.param({"mesh": object()}, "item 9", id="kw0-item 9"),
+    # item 9b is ported: a scheduler over a mesh drives its batched BFS
+    # cohorts there, and runs on the mesh's first device only
+    pytest.param({"mesh": local_mesh(["cpu", "cpu"])}, "9b",
+                 id="kw0-item 9"),
     # item 6b is ported: a scheduler over a graph builds its pool's
     # snapshots from it, lazily, at the first job
     pytest.param({"graph": object(), "snapshot": None}, None,
                  id="kw2-6b")])
 def test_scheduler_refuses_what_is_not_ported(kw, item):
     kw.setdefault("snapshot", _snap())
+    if item == "9b":
+        s = JobScheduler(device="cpu", autostart=False, **kw)
+        try:
+            assert s.mesh is kw["mesh"] and s.batcher.mesh is kw["mesh"]
+            assert s._dump_config()["mesh_devices"] == 2
+            assert s.batcher.would_mesh("bfs", None)
+        finally:
+            s.close()
+        with pytest.raises(ValueError, match="first device"):
+            JobScheduler(device="cpu", autostart=False, snapshot=_snap(),
+                         mesh=local_mesh(["meta", "cpu"]))
+        return
     if item is None:
         s = JobScheduler(device="cpu", autostart=False, **kw)
         try:
@@ -216,8 +232,9 @@ def test_scheduler_lends_the_plane_its_ledger_and_tracer_and_closes_it():
 
 def test_interactive_lane_names_its_roadmap_item():
     """The lane is ported (ROADMAP queue 1, item 8's interactive part):
-    one lane a scheduler, refused once the scheduler is closed; the
-    mesh-placed batcher still names item 9."""
+    one lane a scheduler, refused once the scheduler is closed. The
+    mesh-placed batcher (item 9b) is ported too: it meshes BFS groups
+    only, and refuses a device other than the mesh's first."""
     s = JobScheduler(snapshot=_snap(), device="cpu", autostart=False)
     try:
         lane = s.interactive()
@@ -227,8 +244,10 @@ def test_interactive_lane_names_its_roadmap_item():
     assert lane.closed
     with pytest.raises(RuntimeError, match="closed"):
         s.interactive()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        PB.Batcher(mesh=object(), device="cpu")
+    b = PB.Batcher(mesh=local_mesh(["cpu"] * 3), device="cpu")
+    assert b.would_mesh("bfs", None) and not b.would_mesh("sssp", None)
+    with pytest.raises(ValueError, match="first device"):
+        PB.Batcher(mesh=local_mesh(["meta"]), device="cpu")
 
 
 def test_scheduler_defaults_to_cuda(monkeypatch):

@@ -9,6 +9,8 @@ one ``.tolist()``.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 INF = 1 << 30
@@ -38,3 +40,14 @@ def cache_key(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def on_card(device):
+    """The context a kernel launches under: ``torch.cuda.device(device)``
+    on a card, so the launcher's grid (sized for ``cudaGetDevice``) and
+    stream are that card's whichever device is current, as when one
+    process drives several cards; nothing on any other device, where the
+    launcher raises its own error."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

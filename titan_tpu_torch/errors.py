@@ -80,26 +80,13 @@ class TransactionClosedError(TitanError):
     """Operation on a committed/rolled-back transaction."""
 
 
-#: the ROADMAP queue 1 items still to port, by number
-_ITEMS = {9: "9b, the serving plane's mesh=: mesh-placed batches and "
-             "schedulers"}
-
-
-def not_ported(what: str, item: int | None = None) -> NotImplementedError:
-    """The error raised for a part of the JAX package that the port leaves
-    out. With ``item``, a part still to port, named with its ROADMAP queue
-    1 item: 9, whose half 9b is the serving plane's ``mesh=``
-    (mesh-placed batches and schedulers: ``JobScheduler(mesh=)``,
-    ``Batcher(mesh=)``, ``frontier_bfs_batched`` on a mesh-placed graph,
-    ``place_batched_csr``). Without, the ``tpu`` computer, which has a
-    counterpart instead: the port's ``gpu`` computer."""
-    if item is None:
-        return NotImplementedError(
-            f"{what} is not ported: the port's counterpart of the JAX "
-            "package's TPU computer is computer.backend='gpu'")
+def not_ported(what: str) -> NotImplementedError:
+    """The error raised for the part of the JAX package that the port
+    leaves out by design: the ``tpu`` computer, whose counterpart is the
+    port's ``gpu`` computer."""
     return NotImplementedError(
-        f"{what} is not ported (ROADMAP queue 1, item {item}: "
-        f"{_ITEMS[item]})")
+        f"{what} is not ported: the port's counterpart of the JAX "
+        "package's TPU computer is computer.backend='gpu'")
 
 
 #: top-level packages the port never imports, not even by a name it is

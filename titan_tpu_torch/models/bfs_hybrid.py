@@ -39,7 +39,6 @@ import numpy as np
 import torch
 
 from titan_tpu_torch.device import INF, cache_key, next_pow2, resolve_device
-from titan_tpu_torch.errors import not_ported
 from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.ops.compaction import (CLAIM_SENTINEL, claim_dedup,
                                             claim_reset, compact_ids,
@@ -672,30 +671,163 @@ def _overlay_scatter_batched(dist, fbits, ov_src, ov_dst, level: int,
 
 
 def _initial_dist(K: int, n: int, src_arr, init_dist, expand: bool,
-                  start_level: int, dev):
-    """The [K, n+2] state: ``init_dist`` [K, n] with two INF columns
-    appended, or the seeding of the JAX function (BFS: INF with each source
-    at 0; hops: 0 with each source at ``start_level`` and column n INF)."""
+                  start_level: int, dev, lo: int = 0, hi: int | None = None):
+    """The [K, w+2] state of vertices ``[lo, hi)`` (default all n, w = hi
+    - lo): ``init_dist``'s columns with two INF columns appended, or the
+    seeding of the JAX function (BFS: INF with each source at 0; hops: 0
+    with each source at ``start_level`` and column w INF)."""
+    hi = n if hi is None else hi
+    w = hi - lo
     if init_dist is not None:
-        d = init_dist.to(dev, torch.int32) if torch.is_tensor(init_dist) \
-            else torch.from_numpy(np.asarray(init_dist, np.int32)).to(dev)
-        if tuple(d.shape) != (K, n):
-            raise ValueError(f"init_dist must be [K={K}, n={n}], got "
-                             f"{tuple(d.shape)}")
-        # column n is the never-written INF column of a fresh run, so a
+        d = init_dist[:, lo:hi]
+        d = d.to(dev, torch.int32) if torch.is_tensor(d) \
+            else torch.from_numpy(np.ascontiguousarray(d, np.int32)).to(dev)
+        # column w is the never-written INF column of a fresh run, so a
         # resumed row appends it (and the spare)
         return torch.cat([d, torch.full((K, 2), INF, dtype=torch.int32,
                                         device=dev)], dim=1)
-    rows = torch.arange(K, device=dev)
-    srcs = torch.from_numpy(src_arr).to(dev)
+    mine = (src_arr >= lo) & (src_arr < hi)
+    rows = torch.from_numpy(np.flatnonzero(mine)).to(dev)
+    srcs = torch.from_numpy(src_arr[mine] - lo).to(dev)
     if expand:
-        dist = torch.zeros((K, n + 2), dtype=torch.int32, device=dev)
+        dist = torch.zeros((K, w + 2), dtype=torch.int32, device=dev)
         dist[rows, srcs] = start_level
-        dist[:, n] = INF
+        dist[:, w] = INF
     else:
-        dist = torch.full((K, n + 2), INF, dtype=torch.int32, device=dev)
+        dist = torch.full((K, w + 2), INF, dtype=torch.int32, device=dev)
         dist[rows, srcs] = 0
     return dist
+
+
+def _readback(ts) -> list:
+    """Each tensor of ``ts`` as a list, every copy issued before any is
+    read: a card's goes to pinned host memory behind its own stream, so
+    the cards of a mesh never wait for one another's readback. One
+    tensor is a plain ``.tolist()``."""
+    if len(ts) == 1:
+        return [ts[0].tolist()]
+    staged = []
+    for t in ts:
+        if t.device.type != "cuda":
+            staged.append((t, None))
+            continue
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(t.device))
+        staged.append((h, ev))
+    for _, ev in staged:
+        if ev is not None:
+            ev.synchronize()
+    return [h.tolist() for h, _ in staged]
+
+
+class _Block:
+    """One vertex block of a batched run: its chunked CSR ``g`` (``n`` =
+    its width, ``colstart``/``degc`` re-based to it, ``dstT`` payload the
+    global ids), its first vertex ``lo`` and first global column ``c0``,
+    its ``[K, w+2]`` dist and this level's plan. A run on one device is
+    one block: the whole graph at ``lo`` = 0."""
+
+    def __init__(self, g: dict, lo: int, c0: int, dist):
+        self.g, self.lo, self.c0, self.dist = g, lo, c0, dist
+        self.w = g["n"]
+        self.dev = dist.device
+        self.cap = next_pow2(max(self.w, 2))
+        self.active = None
+        self.plan = None
+
+    def slots(self, bits, dev=None):
+        """A slot bitmap (byte = global chunk column, clamped as the
+        kernels clamp it) cut to this block's columns, its pad column
+        included, on this block's device."""
+        q = self.g["dstT"].shape[1]
+        idx = torch.arange(self.c0, self.c0 + q, device=bits.device) \
+            .clamp_(max=bits.shape[0] - 1)
+        return bits[idx].to(self.dev)
+
+
+def _blocks(placed: dict, K: int, src_arr, init_dist, expand: bool,
+            start_level: int) -> list:
+    """The blocks of a mesh-placed graph (``place_batched_csr``)."""
+    n = placed["n"]
+    return [_Block(sh, sh["lo"], sh["c0"],
+                   _initial_dist(K, n, src_arr, init_dist, expand,
+                                 start_level, sh["device"], sh["lo"],
+                                 sh["hi"]))
+            for sh in placed["_shards"]]
+
+
+class _Words:
+    """The K jobs' frontier words of a level, whole, on each device of
+    the run. One block's words are the whole (``lo`` = 0). Over several
+    blocks each block packs its own and ``copy_`` puts them into a full
+    ``[G, plane_bytes(n+2, K)]`` array on every device, ordered against
+    both devices' current streams; a block starts on a multiple of 8
+    vertices, so its words start on a byte."""
+
+    def __init__(self, blocks: list, K: int, n: int):
+        self.blocks, self.K = blocks, K
+        Kp, G = word_bits(K)
+        self.Kp = Kp
+        self.full = {} if len(blocks) == 1 else {
+            b.dev: torch.zeros((G, plane_bytes(n + 2, K)),
+                               dtype=torch.uint8, device=b.dev)
+            for b in blocks}
+        #: bytes of words copied a level: in all, and between devices
+        self.copied = {"bytes": [], "between_devices": []}
+
+    def share(self) -> dict:
+        """{device: words} from each block's plan."""
+        if not self.full:
+            b = self.blocks[0]
+            return {b.dev: b.plan[0]}
+        total = between = 0
+        for b in self.blocks:
+            a, ln = b.lo * self.Kp // 8, -(-b.w * self.Kp // 8)
+            local = b.plan[0][:, :ln]
+            for dev, full in self.full.items():
+                full[:, a:a + ln].copy_(local, non_blocking=True)
+                total += local.numel()
+                between += local.numel() if dev != b.dev else 0
+        self.copied["bytes"].append(total)
+        self.copied["between_devices"].append(between)
+        return self.full
+
+
+def _overlay_adds(ov, blocks: list) -> list:
+    """Each block's overlay adds ``(src, dst)``: the adds whose
+    destination it owns, ``dst`` re-based to it and ``src`` global, on
+    its device. One block takes the view's arrays as they are (pads n+1
+    land in its spare column)."""
+    if len(blocks) == 1:
+        return [(ov.src_dev, ov.dst_dev)]
+    src = ov.src_dev.cpu().numpy()
+    dst = ov.dst_dev.cpu().numpy()
+    out = []
+    for b in blocks:
+        mine = (dst >= b.lo) & (dst < b.lo + b.w)
+        out.append((torch.from_numpy(src[mine]).to(b.dev),
+                    torch.from_numpy(dst[mine] - b.lo).to(b.dev)))
+    return out
+
+
+def _gather_dist(blocks: list, n: int, cols: int):
+    """The first ``cols`` (n or n+1) columns of the run's dist, whole on
+    the first block's device (column n is INF), as a tensor of its own."""
+    b0 = blocks[0]
+    if len(blocks) == 1:
+        return b0.dist[:, :cols].clone()
+    parts = [b.dist[:, :b.w].to(b0.dev) for b in blocks]
+    if cols > n:
+        parts.append(torch.full((b0.dist.shape[0], cols - n), INF,
+                                dtype=torch.int32, device=b0.dev))
+    return torch.cat(parts, dim=1)
+
+
+#: the frontier words the last run copied level by level: ``bytes`` in
+#: all, ``between_devices`` of them (both empty after a run on one block)
+LAST_WORDS_COPIED: dict = {"bytes": [], "between_devices": []}
 
 
 def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
@@ -707,8 +839,9 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
     run with [K, n] state. Each job's ``dist`` row is bit-equal to
     ``frontier_bfs_hybrid`` from that source; the per-level plan and
     every edge-chunk gather are shared across jobs. ``snap_or_graph`` is
-    a snapshot (duck-typed, see ``build_chunked_csr``) or a device graph
-    dict on ``device`` (``None`` means CUDA).
+    a snapshot (duck-typed, see ``build_chunked_csr``), a device graph
+    dict on ``device`` (``None`` means CUDA), or a mesh-placed graph
+    (below).
 
     ``on_level(level, frontier_counts)``: an optional host callback after
     each level's plan, given the per-job frontier sizes (np int32 [K]);
@@ -739,28 +872,42 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
     is ``dist == d + start_level``. Needs ``start_level >= 1`` and seeds
     stamped ``start_level`` in ``init_dist`` (or through ``sources``).
 
-    ``level_masks``: per-level edge-slot bitmaps (uint8 tensors on the
-    graph's device, the overlay tombstone packing: byte = chunk column,
-    bit = lane; 1 = the slot does not count as a parent this level),
-    indexed ``level - start_level``; None entries and levels past the
-    list run unmasked. They ride the kernel's ``tbits`` seam, so they are
-    refused together with a non-empty overlay (ValueError).
+    ``level_masks``: per-level edge-slot bitmaps (uint8 tensors, the
+    overlay tombstone packing: byte = chunk column, bit = lane; 1 = the
+    slot does not count as a parent this level), indexed ``level -
+    start_level``; None entries and levels past the list run unmasked.
+    They ride the kernel's ``tbits`` seam, so they are refused together
+    with a non-empty overlay (ValueError).
 
-    Not ported: a graph dict with ``_state_sharding`` (the mesh-placed
-    cohort of the multi-device slice) raises NotImplementedError.
+    Mesh placement: a graph dict with ``_state_sharding``
+    (``parallel/partition.place_batched_csr``) runs block by block on
+    its mesh's devices, each level in lockstep: each block plans its own
+    vertices (its K jobs' words and candidates), the words are copied
+    into a whole array on every device (``LAST_WORDS_COPIED``), each
+    block runs ``frontier_round`` and ``batched_exhaust`` over its own
+    columns and stamps its own dist, and the host reads one stats and
+    one progress readback a block, all issued before any is read, and
+    sums them. Slot bitmaps are cut to each block's columns; an overlay's
+    adds scatter on the block that owns their destination. ``device``
+    must then be of the mesh's devices' type; ``checkpoint`` gets the
+    dist gathered on the mesh's first device, and the result is
+    gathered there.
 
     Returns ``(dist, levels, completed)``: dist [K, n] int32 (a device
     tensor when ``return_device``, else numpy; INF = unreachable, partial
     for jobs not completed), levels np int32 [K] (the level at which each
     job's frontier emptied or it was dropped), completed np bool [K]."""
     dev = resolve_device(device)
-    if isinstance(snap_or_graph, dict) and "_state_sharding" in snap_or_graph:
-        raise not_ported("frontier_bfs_batched on a mesh-placed graph "
-                         "(_state_sharding)", item=9)
+    meshed = isinstance(snap_or_graph, dict) \
+        and "_state_sharding" in snap_or_graph
     g = snap_or_graph if isinstance(snap_or_graph, dict) \
         else build_chunked_csr(snap_or_graph, dev)
-    if g["dstT"].device.type != dev.type:
-        raise ValueError(f"graph lies on {g['dstT'].device}, device={dev}")
+    if meshed and not g.get("_shards"):
+        raise ValueError("a graph dict with _state_sharding must come from "
+                         "parallel.partition.place_batched_csr")
+    g_dev = g["_shards"][0]["device"] if meshed else g["dstT"].device
+    if g_dev.type != dev.type:
+        raise ValueError(f"graph lies on {g_dev}, device={dev}")
     ov = overlay
     if ov is None and not isinstance(snap_or_graph, dict):
         ov = getattr(snap_or_graph, "_live_overlay", None)
@@ -774,8 +921,6 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
     if ov is not None and ov.tomb_dev.device.type != dev.type:
         raise ValueError(f"overlay lies on {ov.tomb_dev.device}, "
                          f"device={dev}")
-    tbits = ov.tomb_dev if ov is not None and ov.tomb_count > 0 else None
-    scatter_adds = ov is not None and ov.count > 0
     if mode not in ("bfs", "hops"):
         raise ValueError(f"mode must be 'bfs' or 'hops', got {mode!r}")
     expand = mode == "hops"
@@ -786,23 +931,46 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
     if K == 0:
         raise ValueError("frontier_bfs_batched needs >= 1 source")
     src_arr = np.asarray(sources, np.int64)
-    if src_arr.min() < 0 or src_arr.max() >= g["n"]:
-        raise IndexError(f"source out of range [0, {g['n']})")
-    n, degc = g["n"], g["degc"]
-    cap_n = next_pow2(max(n, 2))
-    dist = _initial_dist(K, n, src_arr, init_dist, expand, start_level,
-                         g["dstT"].device)
+    n = g["n"]
+    if src_arr.min() < 0 or src_arr.max() >= n:
+        raise IndexError(f"source out of range [0, {n})")
+    if init_dist is not None:
+        if not torch.is_tensor(init_dist):
+            init_dist = np.asarray(init_dist, np.int32)
+        if tuple(init_dist.shape) != (K, n):
+            raise ValueError(f"init_dist must be [K={K}, n={n}], got "
+                             f"{tuple(init_dist.shape)}")
+    if meshed:
+        blocks = _blocks(g, K, src_arr, init_dist, expand, start_level)
+    else:
+        blocks = [_Block(g, 0, 0, _initial_dist(
+            K, n, src_arr, init_dist, expand, start_level,
+            g["dstT"].device))]
+    one = len(blocks) == 1
+    tbits = None
+    if ov is not None and ov.tomb_count > 0:
+        tbits = [ov.tomb_dev] if one else [b.slots(ov.tomb_dev)
+                                           for b in blocks]
+    adds = _overlay_adds(ov, blocks) if ov is not None and ov.count > 0 \
+        else None
+    words = _Words(blocks, K, n)
+
+    def plan_all():
+        for b in blocks:
+            b.plan = _batched_plan(b.dist, b.active, level, b.g["degc"],
+                                   b.cap, b.w, expand)
+        sts = _readback([b.plan[2] for b in blocks])
+        return [st[0] for st in sts], \
+            np.sum([st[1:] for st in sts], axis=0, dtype=np.int32)
 
     act_h = np.ones(K, bool)
-    active = torch.from_numpy(act_h).to(dist.device)
+    for b in blocks:
+        b.active = torch.from_numpy(act_h).to(b.dev)
     levels = np.zeros(K, np.int32)
     completed = np.zeros(K, bool)
     level = int(start_level)
     while level < max_levels:
-        fbits, cand, stats = _batched_plan(dist, active, level, degc, cap_n,
-                                           n, expand)
-        st = stats.tolist()              # ONE readback a level, all jobs
-        nf = np.asarray(st[1:], np.int32)
+        c_counts, nf = plan_all()        # ONE readback a level a block
         mask_changed = False
         # an empty frontier means that job's BFS is complete
         newly_done = act_h & (nf == 0)
@@ -824,57 +992,65 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
         if checkpoint is not None:
             # a consistent boundary: every level < ``level`` is final in
             # dist; this level's frontier (dist == level) is unswept
-            checkpoint(level, dist[:, :n + 1].clone(), act_h.copy())
+            checkpoint(level, _gather_dist(blocks, n, n + 1), act_h.copy())
         if mask_changed:
             # deactivated jobs must stop influencing the sweep: re-plan
             # with the new mask, which zeroes their frontier bits and drops
             # their unvisited sets from the shared candidate list
-            active = torch.from_numpy(act_h).to(dist.device)
-            fbits, cand, stats = _batched_plan(dist, active, level, degc,
-                                               cap_n, n, expand)
-            st = stats.tolist()
-        if scatter_adds:
-            # overlay adds expand top-down off the level's final words,
-            # independent of the base sweep below (both stamp level+1 by
-            # the same reduction, so the order does not matter); it runs
-            # even when the base candidate list is empty
-            _overlay_scatter_batched(dist, fbits, ov.src_dev, ov.dst_dev,
-                                     level, n, expand)
-        c_count = int(st[0])
+            for b in blocks:
+                b.active = torch.from_numpy(act_h).to(b.dev)
+            c_counts, nf = plan_all()
+        fbits = words.share()
         # hops mode: the jobs with a frontier this level, from the plan's
-        # per-job counts on the device (column n_ is never == level)
-        live = (stats[1:] > 0)[:, None] if expand else None
+        # per-job counts (column w of a block is never == level): on the
+        # device for one block, summed on the host over several
+        live = None
+        if expand:
+            live = (blocks[0].plan[2][1:] > 0)[:, None] if one \
+                else torch.from_numpy(nf > 0)[:, None]
         # a level's label mask rides the tbits seam of the tombstones
         tb_l = tbits
         if level_masks is not None:
             i_lm = level - start_level
             lm = level_masks[i_lm] if 0 <= i_lm < len(level_masks) else None
             if lm is not None:
-                tb_l = lm
-        rounds, off = 0, None
-        while c_count > 0 and rounds < BU_CHUNK_ROUNDS:
-            c_cap2 = min(next_pow2(max(c_count, 2)), cap_n)
-            if off is None:
-                off = torch.zeros(cap_n, dtype=torch.int32,
-                                  device=dist.device)
-            fuse = BU_CHUNK_ROUNDS - rounds
-            cand, off, prog = _batched_rounds(
-                dist, fbits, cand[:c_cap2], off[:c_cap2], c_count, level, g,
-                tb_l, fuse, expand, live)
-            c_count, rem8 = prog.tolist()
-            rounds += fuse
-        if c_count > 0:
-            # the stragglers' remaining chunks, all in one sweep
-            c_cap2 = min(next_pow2(max(c_count, 2)), cap_n)
-            _batched_exhaust(dist, fbits, cand[:c_cap2], off[:c_cap2],
-                             c_count, level, g, tb_l,
-                             next_pow2(max(rem8, 2)), expand)
+                tb_l = [lm] if one else [b.slots(lm) for b in blocks]
+        progs = []
+        for i, (b, c_count) in enumerate(zip(blocks, c_counts)):
+            fb = fbits[b.dev]
+            if adds is not None:
+                # overlay adds expand top-down off the level's final words,
+                # independent of the base sweep below (both stamp level+1
+                # by the same reduction, so the order does not matter); it
+                # runs even when the base candidate list is empty
+                _overlay_scatter_batched(b.dist, fb, adds[i][0], adds[i][1],
+                                         level, b.w, expand)
+            if c_count > 0:
+                # BU_CHUNK_ROUNDS chunk rounds over the block's candidates
+                c_cap2 = min(next_pow2(max(c_count, 2)), b.cap)
+                off = torch.zeros(c_cap2, dtype=torch.int32, device=b.dev)
+                cand, off, prog = _batched_rounds(
+                    b.dist, fb, b.plan[1][:c_cap2], off, c_count, level,
+                    b.g, None if tb_l is None else tb_l[i], BU_CHUNK_ROUNDS,
+                    expand, None if live is None else live.to(b.dev))
+                progs.append((i, cand, off, prog))
+        done = _readback([p[3] for p in progs])   # ONE a block a fuse
+        for (i, cand, off, _), (c_count, rem8) in zip(progs, done):
+            if c_count > 0:
+                # the stragglers' remaining chunks, all in one sweep
+                b = blocks[i]
+                c_cap2 = min(next_pow2(max(c_count, 2)), b.cap)
+                _batched_exhaust(b.dist, fbits[b.dev], cand[:c_cap2],
+                                 off[:c_cap2], c_count, level, b.g,
+                                 None if tb_l is None else tb_l[i],
+                                 next_pow2(max(rem8, 2)), expand)
         level += 1
     # jobs still active at max_levels count as completed at the cap
     if act_h.any():
         completed[act_h] = True
         levels[act_h] = level
-    out = dist[:, :n]
+    LAST_WORDS_COPIED.update(words.copied)
+    out = blocks[0].dist[:, :n] if one else _gather_dist(blocks, n, n)
     if return_device:
         return out, levels, completed
     devprof.count_d2h("bfs.dist", out.numel() * out.element_size())

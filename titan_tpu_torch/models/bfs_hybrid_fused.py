@@ -62,7 +62,7 @@ import functools
 import torch
 
 from titan_tpu_torch.build import build_cuda
-from titan_tpu_torch.device import INF, next_pow2, resolve_device
+from titan_tpu_torch.device import INF, next_pow2, on_card, resolve_device
 from titan_tpu_torch.models.bfs_hybrid import (_bit_of, _level_stats,
                                                _pack_bits, build_chunked_csr)
 from titan_tpu_torch.obs import devprof
@@ -340,7 +340,8 @@ def fused_bfs(g, source: int, max_levels: int = 1000):
     if g["dstT"].device.type == "cpu":
         return devprof.profiled("bfs_fused", fused_bfs_reference, g,
                                 source, max_levels)
-    return devprof.profiled("bfs_fused", _launch, g, source, max_levels)
+    with on_card(g["dstT"].device):
+        return devprof.profiled("bfs_fused", _launch, g, source, max_levels)
 
 
 #: kernel launches so far (the CPU path never counts)

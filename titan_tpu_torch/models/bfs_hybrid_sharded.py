@@ -82,18 +82,22 @@ LAST_PROFILE: list = []
 _CACHE = "_hybrid_shards_by_mesh"
 
 
-def plan_shard_cuts(colstart: np.ndarray, n: int, num_shards: int):
+def plan_shard_cuts(colstart: np.ndarray, n: int, num_shards: int,
+                    align: int = 1):
     """Edge-balanced vertex-range cuts on the chunk prefix, with the int32
     guard: per-shard arrays use LOCAL column indices, so every shard's
     chunk span must stay below 2^31 even when the global chunk count
-    exceeds it (``colstart`` is int64). Returns ``(bounds [d_eff+1]
-    int64, b_max, q_max)``; raises NotImplementedError when a shard's
-    local span would overflow int32."""
+    exceeds it (``colstart`` is int64). ``align`` rounds each inner cut
+    to the nearest multiple of it (the mesh-placed batched BFS cuts on
+    multiples of 8 vertices; 1, the JAX package's cuts, leaves them).
+    Returns ``(bounds [d_eff+1] int64, b_max, q_max)``; raises
+    NotImplementedError when a shard's local span would overflow
+    int32."""
     total = int(colstart[n])
     cuts = [0]
     for k in range(1, num_shards):
-        cuts.append(int(np.searchsorted(colstart[:n + 1],
-                                        k * total / num_shards)))
+        c = int(np.searchsorted(colstart[:n + 1], k * total / num_shards))
+        cuts.append(min((c + align // 2) // align * align, n))
     cuts.append(n)
     bounds = np.asarray(sorted(set(cuts)), np.int64)
     d_eff = len(bounds) - 1

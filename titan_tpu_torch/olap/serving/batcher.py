@@ -23,8 +23,13 @@ arrays stay under keys the wire form omits (Job.to_wire) — callers
 resolve per-target distances via ``params['targets']``. Readbacks count
 on ``obs/devprof``'s ``frontier.result`` site.
 
-Mesh placement (``Batcher(mesh=...)``) belongs to the multi-device slice
-(ROADMAP queue 1, item 9) and raises NotImplementedError.
+Mesh placement (``Batcher(mesh=...)``, a ``parallel.mesh.LocalMesh``):
+batched BFS groups run over the mesh, the leased snapshot placed once
+through ``parallel/partition.place_batched_csr`` (its vertices in blocks,
+one a mesh device) and driven block by block by ``frontier_bfs_batched``.
+Only kind ``"bfs"`` (``_MESH_KINDS``) and only with no live overlay go
+that way; ``would_mesh`` is the one predicate, which the scheduler's
+per-device ledger charge reads too. The run span records ``meshed: D``.
 """
 
 from __future__ import annotations
@@ -36,8 +41,7 @@ import numpy as np
 
 import torch
 
-from titan_tpu_torch.device import INF, resolve_device
-from titan_tpu_torch.errors import not_ported
+from titan_tpu_torch.device import INF, cache_key, resolve_device
 from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.olap.serving.jobs import Job
 
@@ -45,6 +49,13 @@ from titan_tpu_torch.olap.serving.jobs import Job
 #: snapshot — BFS through the [K, n] batched kernel, SSSP/WCC through
 #: the per-member cohort driver (models/frontier._frontier_cohort)
 BATCHABLE_KINDS = ("bfs", "sssp", "wcc")
+
+#: kinds the mesh placement path understands (parallel/partition
+#: places the BATCHED BFS layout only) — the would_mesh predicate and
+#: the scheduler's per-device ledger accounting key off this, NOT off
+#: BATCHABLE_KINDS, so adding cohort kinds cannot silently change what
+#: the admission guard charges per device
+_MESH_KINDS = ("bfs",)
 
 
 def batch_key(spec) -> Optional[tuple]:
@@ -136,14 +147,31 @@ def _bfs_result(snap, dist_row: np.ndarray, levels: int, inf: int,
 class Batcher:
     """Stateless executor over leased snapshots (the scheduler owns the
     queue, admission and leases), running every kind on ``device``
-    (``None`` means CUDA)."""
+    (``None`` means CUDA).
+
+    With ``mesh`` (a ``LocalMesh`` whose first device is ``device``),
+    batched BFS cohorts run over the mesh (module doc); every other
+    kind, and a BFS cohort under a live overlay, runs on ``device``."""
 
     def __init__(self, max_batch: int = 16, mesh=None, device=None):
-        if mesh is not None:
-            raise not_ported("Batcher(mesh=...), mesh-placed batches "
-                             "(place_batched_csr)", item=9)
         self.max_batch = max_batch
         self.device = resolve_device(device)
+        if mesh is not None and cache_key(mesh.devices[0]) \
+                != cache_key(self.device):
+            # never move unmeshed work off the mesh's first device
+            raise ValueError(f"the batcher runs on {self.device}, the "
+                             f"mesh's first device is {mesh.devices[0]}")
+        self.mesh = mesh
+
+    def would_mesh(self, kind: str, overlay) -> bool:
+        """THE meshed-execution predicate — the scheduler's per-device
+        memory admission accounting queries this exact method, so the
+        bytes the ledger charges and the layout this batcher actually
+        uploads can never disagree."""
+        return (self.mesh is not None
+                and int(self.mesh.size) > 1
+                and kind in _MESH_KINDS
+                and (overlay is None or overlay.empty))
 
     def run_batch(self, jobs: list[Job], snap, overlay=None) -> None:
         """Kind-generic batch entry (the scheduler's one dispatch
@@ -243,6 +271,14 @@ class Batcher:
         started = time.time()
         dropped = [None] * K    # terminal state decided at a boundary
         n = snap.n if hasattr(snap, "n") else snap["n"]
+        # mesh placement: overlay leases stay on one device (the overlay's
+        # device buffers belong to the unsharded layout); everything else
+        # runs over the mesh through the placed graph dict
+        target = snap
+        meshed = self.would_mesh("bfs", overlay)
+        if meshed:
+            from titan_tpu_torch.parallel.partition import place_batched_csr
+            target = place_batched_csr(snap, self.mesh)
         # device-run spans (obs): one "run" per job covering the shared
         # level loop; per-level "round" children carry the job's OWN
         # frontier count — all host timestamps from the level callback
@@ -251,7 +287,9 @@ class Batcher:
                                 **({"overlay_edges": overlay.count,
                                     "overlay_tombs": overlay.tomb_count}
                                    if overlay is not None
-                                   and not overlay.empty else {}))
+                                   and not overlay.empty else {}),
+                                **({"meshed": int(self.mesh.size)}
+                                   if meshed else {}))
                 if job.trace is not None else None
                 for job in runnable]
         # anchor AFTER the run spans open so the first round's window
@@ -303,7 +341,7 @@ class Batcher:
                          for j in runnable)
         try:
             dist, levels, completed = frontier_bfs_batched(
-                snap, sources, max_levels=int(
+                target, sources, max_levels=int(
                     runnable[0].spec.params.get("max_levels", 1000)),
                 on_level=on_level,
                 init_dist=init_dist, start_level=start_level,

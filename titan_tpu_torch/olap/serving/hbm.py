@@ -13,8 +13,8 @@ The budget defaults to ``None``: on a CUDA device that is
 ``DEFAULT_BUDGET_SHARE`` of the card's memory (``torch.cuda.
 mem_get_info``), leaving the rest to kernel state and temporaries; on
 the CPU there is no device memory to guard and the budget is unbounded.
-The mesh-placed byte model (``meshed_snapshot_csr_bytes``) belongs to
-the multi-device slice (ROADMAP queue 1, item 9).
+A mesh-placed cohort charges one device's share
+(``meshed_snapshot_csr_bytes``), JAX's model of it.
 """
 
 from __future__ import annotations
@@ -59,6 +59,22 @@ def snapshot_csr_bytes(snap) -> int:
     deg = snap.out_degree
     q_total = int((-(-deg.astype("int64") // 8)).sum()) + 1
     return chunked_csr_bytes(snap.n, q_total)
+
+
+def meshed_snapshot_csr_bytes(snap, num_devices: int) -> int:
+    """PER-DEVICE bytes of a mesh-placed chunked CSR
+    (``parallel/partition.place_batched_csr``), the JAX package's model:
+    the ``dstT`` edge image split over the mesh, each device holding ~1/D
+    of it, and the three per-vertex side arrays counted whole. The
+    ledger models ONE device's memory, so a mesh-placed cohort charges
+    this, not the whole image. It is JAX's model, kept so both ledgers
+    charge the same: a port block holds only its own side arrays, and
+    its column count follows the cuts."""
+    total = snapshot_csr_bytes(snap)
+    n = getattr(snap, "n", 0)
+    vert = 3 * 4 * (n + 1)                    # colstart/degc/deg
+    edges = max(total - vert, 0)
+    return int(vert + -(-edges // max(int(num_devices), 1)))
 
 
 class AdmissionError(RuntimeError):

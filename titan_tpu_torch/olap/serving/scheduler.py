@@ -99,8 +99,13 @@ the HBM ledger (``_forget_snapshot``). ``live=`` attaches a live plane
 (``olap/live/plane.py``): jobs of its key lease (snapshot, overlay view)
 pairs, the plane borrows this scheduler's ledger and tracer, and
 ``close()`` closes it; the plane must serve on this scheduler's device.
-Not ported: mesh placement (``mesh=``, ROADMAP queue 1, item 9), which
-raises NotImplementedError.
+
+``mesh=`` (a ``parallel.mesh.LocalMesh``): batched BFS cohorts run over
+the mesh's devices (``Batcher.would_mesh``; ``parallel/partition.
+place_batched_csr``), and the ledger, which models one device, charges
+them each device's share (``hbm.meshed_snapshot_csr_bytes``). ``device``
+must be the mesh's first device (``ValueError`` otherwise): every other
+kind and the interactive lane run there.
 """
 
 from __future__ import annotations
@@ -113,13 +118,13 @@ import time
 from typing import Optional
 
 from titan_tpu_torch.device import cache_key, resolve_device
-from titan_tpu_torch.errors import not_ported
 from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.obs.flightrec import FlightRecorder
 from titan_tpu_torch.obs.tracing import TraceHandle, Tracer
 from titan_tpu_torch.olap.api import JobSpec
 from titan_tpu_torch.olap.serving.batcher import Batcher, batch_key
 from titan_tpu_torch.olap.serving.hbm import (AdmissionError, HBMLedger,
+                                              meshed_snapshot_csr_bytes,
                                               snapshot_csr_bytes)
 from titan_tpu_torch.olap.serving.jobs import Job, JobState
 from titan_tpu_torch.olap.serving.pool import SnapshotPool
@@ -161,12 +166,15 @@ class JobScheduler:
                  autotune_clock=None,
                  autotune_params: Optional[dict] = None,
                  device=None):
-        if mesh is not None:
-            raise not_ported("JobScheduler(mesh=...), mesh-placed batches",
-                             item=9)
         # the device every job runs on; None means CUDA and raises
         # without a card
         self.device = resolve_device(device)
+        if mesh is not None and cache_key(mesh.devices[0]) \
+                != cache_key(self.device):
+            # never move unmeshed work off the mesh silently
+            raise ValueError(f"the scheduler runs on {self.device}, the "
+                             f"mesh's first device is {mesh.devices[0]}; "
+                             "pass device=mesh.devices[0]")
         if live is not None and cache_key(live.device) \
                 != cache_key(self.device):
             # never move a plane's work to another device silently
@@ -245,7 +253,14 @@ class JobScheduler:
             # actually drops the device arrays
             live._on_resident = (
                 lambda snap: self._evictable.setdefault(id(snap), snap))
-        self.batcher = Batcher(max_batch=max_batch, device=self.device)
+        # mesh-aware batch placement: with a multi-device mesh, batched
+        # BFS cohorts split their vertices over the mesh's devices
+        # (parallel/partition.place_batched_csr); the ledger (one
+        # device's budget) then charges each device's share
+        # (hbm.meshed_snapshot_csr_bytes)
+        self.mesh = mesh
+        self.batcher = Batcher(max_batch=max_batch, mesh=mesh,
+                               device=self.device)
         self.max_batch = max_batch
         # (self._metrics was bound before the recorder/profiler above)
         # tenancy plane (olap/serving/tenants): authoritative per-tenant
@@ -423,9 +438,10 @@ class JobScheduler:
     #: (models/bfs_hybrid.build_chunked_csr), the engine's edge arrays
     #: (olap/engine.device_graph) and the interactive lane's label masks
     #: (olap/serving/interactive/compile.hop_label_masks), each a dict
-    #: by device
+    #: by device, and the mesh-placed blocks
+    #: (parallel/partition.place_batched_csr), a dict by mesh
     _DEVICE_CACHES = ("_hybrid_csr_by_device", "_device_graphs",
-                      "_hop_label_masks_by_device")
+                      "_hop_label_masks_by_device", "_batched_csr_by_mesh")
 
     def _evict(self, key) -> None:
         """Device-memory eviction: drop the snapshot's cached device
@@ -659,6 +675,8 @@ class JobScheduler:
         """The scheduler's effective configuration for the bundle —
         enough to reproduce the serving posture without the process."""
         return {"max_batch": self.max_batch,
+                "mesh_devices": int(self.mesh.size)
+                if self.mesh is not None else None,
                 "device": str(self.device),
                 "hbm_budget_bytes": self.ledger.budget_bytes,
                 "tracing": self.tracer.enabled,
@@ -1053,7 +1071,16 @@ class JobScheduler:
             for job in group:
                 job.ran_epoch = epoch_info
             ledger_key = id(snap)
-            nbytes = snapshot_csr_bytes(snap)
+            # mesh-placed cohorts charge the PER-DEVICE share; the
+            # predicate is the batcher's (Batcher.would_mesh), so the
+            # accounting here and the placement there answer from one
+            # definition. A snapshot already resident under the other
+            # accounting keeps its first byte count (reserve() pins
+            # existing keys without re-pricing), as in the JAX package
+            if self.batcher.would_mesh(spec.kind, overlay):
+                nbytes = meshed_snapshot_csr_bytes(snap, self.mesh.size)
+            else:
+                nbytes = snapshot_csr_bytes(snap)
             try:
                 self.ledger.reserve(ledger_key, nbytes)
             except AdmissionError as e:

@@ -394,7 +394,8 @@ class GraphSnapshot:
                       "_hop_label_masks_by_device",
                       "_frontier_csr_by_device", "_tiled_shards_by_device",
                       "_out_degree_by_device", "_sharded_csr_by_mesh",
-                      "_hybrid_shards_by_mesh", "_frontier_shards_by_mesh")
+                      "_hybrid_shards_by_mesh", "_frontier_shards_by_mesh",
+                      "_batched_csr_by_mesh")
 
     def _invalidate_layout_caches(self) -> None:
         """Drop out_csr's pair and every device cache (each rebuilds from

@@ -32,7 +32,10 @@ holds an open parent of chunk ``cols[j]``, ORed into candidate
 
 Each wrapper runs its plain version when its tensors lie on the CPU, and
 its CUDA kernel (``csrc/frontier_round.cu``, ``csrc/batched_exhaust.cu``)
-when they lie on a card; there is no other route. The kernels are built
+when they lie on a card; there is no other route. A launch runs under
+``torch.cuda.device`` of its tensors' card, so the launcher's grid (sized
+for ``cudaGetDevice``) and its stream are that card's whichever device is
+current, as when one process drives several cards. The kernels are built
 with ``nvcc`` at first use and bound with ctypes. The round is one
 launch, a persistent pass that ranks survivors by decoupled look-back
 between tiles, after the wrapper zeroes its scratch (the tile statuses
@@ -55,7 +58,7 @@ import numpy as np
 import torch
 
 from titan_tpu_torch.build import build_cuda
-from titan_tpu_torch.device import next_pow2
+from titan_tpu_torch.device import next_pow2, on_card
 from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.ops.compaction import scatter_compact
 
@@ -269,9 +272,10 @@ def frontier_round(cols, undec, has_more, pay0, pay1, fbits, tbits, dstT,
             "frontier_round", frontier_round_reference, cols, undec,
             has_more, pay0, pay1, fbits, tbits, dstT, lanes=lanes,
             fill0=fill0, fill1=fill1)
-    return devprof.profiled("frontier_round", _launch, cols, undec,
-                            has_more, pay0, pay1, fbits, tbits, dstT,
-                            lanes, fill0, fill1)
+    with on_card(dstT.device):
+        return devprof.profiled("frontier_round", _launch, cols, undec,
+                                has_more, pay0, pay1, fbits, tbits, dstT,
+                                lanes, fill0, fill1)
 
 
 #: kernel launches so far (the CPU path never counts)
@@ -348,9 +352,10 @@ def _launch_summary(fbits, K: int):
                          f"no whole number of {Kp}-bit words")
     sh, nsw = summary_shape(fbits.shape[1], K)
     out = torch.empty(nsw, dtype=torch.int32, device=dev)
-    err = exhaust_library().tt_exhaust_summary(
-        fbits.data_ptr(), K, fbits.shape[1], sh, nsw, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_card(dev):
+        err = exhaust_library().tt_exhaust_summary(
+            fbits.data_ptr(), K, fbits.shape[1], sh, nsw, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{who}: CUDA error {err} at launch")
     _launch_summary.launches += 1
@@ -407,9 +412,11 @@ def batched_exhaust(cols, owner, p_total, fbits, tbits, dstT, *, K: int,
         return devprof.profiled("batched_exhaust", batched_exhaust_reference,
                                 cols, owner, p_total, fbits, tbits, dstT,
                                 K=K, c_cap=c_cap)
-    return job_bits(devprof.profiled("batched_exhaust", _launch_exhaust,
-                                     cols, owner, p_total, fbits, tbits,
-                                     dstT, K, c_cap), K)
+    with on_card(dstT.device):
+        words = devprof.profiled("batched_exhaust", _launch_exhaust, cols,
+                                 owner, p_total, fbits, tbits, dstT, K,
+                                 c_cap)
+    return job_bits(words, K)
 
 
 #: kernel launches so far (the CPU path never counts)

@@ -34,6 +34,7 @@ import functools
 import torch
 
 from titan_tpu_torch.build import build_cuda
+from titan_tpu_torch.device import on_card
 from titan_tpu_torch.obs import devprof
 
 COMBINES = ("sum", "min", "max")
@@ -143,7 +144,8 @@ def seg_scan(values, flags, combine: str):
     if values.device.type == "cpu":
         return devprof.profiled("seg_scan", seg_scan_reference, values,
                                 flags, combine)
-    return devprof.profiled("seg_scan", _launch, values, flags, combine)
+    with on_card(values.device):
+        return devprof.profiled("seg_scan", _launch, values, flags, combine)
 
 
 #: kernel launches so far (the CPU path never counts)

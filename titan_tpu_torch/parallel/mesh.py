@@ -20,9 +20,11 @@ order.
 | ``bound_axes`` / ``axis_bound`` / ``global_sum`` | ``bound(mesh)``, a context that ``engine.run_sharded`` sets around its loop; ``global_sum`` all-reduces inside it and sums plainly outside it, and raises where JAX raises: a bound but different axis |
 | ``multihost.init`` / ``global_mesh`` | ``multihost.init``: ``init_process_group(backend, init_method="file://...", rank, world_size)`` over a file rendezvous (no network), then ``vertex_mesh()`` over the whole group; ``multihost.launch(fn, world, device, backend, args)`` spawns the ranks and returns rank 0's result |
 | ``host_sharded`` / ``host_replicated`` | a rank fills only its own block, from host arrays or ``np.load(mmap_mode="r")`` files |
+| the serving plane's one-process ``Mesh`` (``JobScheduler(mesh=)``, ``place_batched_csr``; ``mesh.devices.size``) | ``LocalMesh``: one process driving its local devices, ``local_mesh(devices=None)``; ``LocalMesh.size`` stands for ``mesh.devices.size``. Devices may repeat: several shards on one card, or on the CPU |
 
 ``mesh_key`` becomes ``VertexMesh.key``, ``(device, world, rank)``: the
-key of the port's per-rank caches on a snapshot or a graph dict.
+key of the port's per-rank caches on a snapshot or a graph dict. A
+``LocalMesh`` is its own key (a frozen dataclass of its devices).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -123,6 +125,39 @@ def vertex_mesh(num_devices: Optional[int] = None, device=None,
         raise ValueError("NCCL reduces CUDA tensors only; a CPU mesh "
                          "runs over gloo")
     return VertexMesh(dist.get_rank(), world, dev, have)
+
+
+@dataclass(frozen=True)
+class LocalMesh:
+    """The serving plane's mesh: one process driving ``devices``, a
+    tuple of ``torch.device`` (the mesh-placed batched BFS puts one
+    vertex block on each, ``parallel/partition.place_batched_csr``).
+    A device may appear more than once: its blocks then share it."""
+
+    devices: tuple
+
+    @property
+    def size(self) -> int:
+        """The number of blocks (JAX's ``mesh.devices.size``)."""
+        return len(self.devices)
+
+
+def local_mesh(devices: Optional[Sequence] = None) -> LocalMesh:
+    """A ``LocalMesh`` over ``devices`` (names or ``torch.device``s, each
+    resolved as every entry point resolves a device; a CUDA device
+    without an index is the current one), or over every visible CUDA
+    device when ``None``, which raises without one."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "local_mesh() takes every visible CUDA device and there is "
+                "none; pass devices=['cpu', ...] to run on the host")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devs = tuple(cache_key(d) for d in devices)
+    if not devs:
+        raise ValueError("local_mesh needs at least one device")
+    return LocalMesh(devs)
 
 
 #: the mesh of the sharded run this thread is inside, if any

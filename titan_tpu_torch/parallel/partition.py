@@ -19,9 +19,15 @@ package's row of it.
 
 The JAX package's ``place_shards`` / ``place_replicated`` become the
 rank-local uploads of ``multihost.host_sharded`` / ``host_replicated``.
-Its mesh-placed batched cohort (``batched_state_sharding``,
-``place_batched_csr``) rests on GSPMD, which PyTorch lacks; it is the
-serving plane's ``mesh=`` and raises here.
+
+* :func:`place_batched_csr` / :func:`batched_state_sharding` place the
+  serving plane's batched cohort over a one-process ``LocalMesh``. JAX
+  shards ``dstT``'s chunk columns over ``"v"`` and lets GSPMD partition
+  the unchanged batched kernels; PyTorch has no GSPMD, so the port cuts
+  the vertices into ``mesh.size`` blocks (``block_layout`` balanced by
+  chunk columns, the cuts on multiples of 8 vertices) and gives each
+  block a chunked CSR of its own on its device, which
+  ``models/bfs_hybrid.frontier_bfs_batched`` drives block by block.
 """
 
 from __future__ import annotations
@@ -32,10 +38,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from titan_tpu_torch.errors import not_ported
+from titan_tpu_torch.obs import devprof
 from titan_tpu_torch.ops.compaction import compact_ids
 from titan_tpu_torch.ops.segment import segment_metadata
-from titan_tpu_torch.parallel.mesh import VERTEX_AXIS, VertexMesh
+from titan_tpu_torch.parallel.mesh import VERTEX_AXIS, LocalMesh, VertexMesh
 
 _ALIGN = 1024  # edge blocks padded to multiples of this, as in JAX
 
@@ -143,13 +149,14 @@ class BlockLayout:
 
 
 def block_layout(colstart: np.ndarray, degc_all: np.ndarray, n: int,
-                 num_shards: int) -> BlockLayout:
+                 num_shards: int, align: int = 1) -> BlockLayout:
     """Plan the edge-balanced vertex-block layout (through
-    ``bfs_hybrid_sharded.plan_shard_cuts``)."""
+    ``bfs_hybrid_sharded.plan_shard_cuts``, the inner cuts rounded to
+    multiples of ``align``)."""
     from titan_tpu_torch.models.bfs_hybrid_sharded import (
         plan_shard_cuts, shard_unvisited_cap)
 
-    bounds, b_max, q_max = plan_shard_cuts(colstart, n, num_shards)
+    bounds, b_max, q_max = plan_shard_cuts(colstart, n, num_shards, align)
     d_eff = len(bounds) - 1
     bounds_full = np.zeros(num_shards + 1, np.int64)
     bounds_full[:len(bounds)] = bounds
@@ -175,18 +182,126 @@ def exchange_found(newly_mask, found_cap: int, n: int, mesh: VertexMesh):
     return all_ids, mesh.all_reduce(cnt, "max")
 
 
-def batched_state_sharding(mesh):
-    """The mesh-placed ``[K, n+1]`` state of a batched cohort: the serving
-    plane's ``mesh=``, not ported."""
-    raise not_ported("batched_state_sharding (a mesh-placed cohort)",
-                     item=9)
+@dataclass(frozen=True)
+class StateSharding:
+    """The port's descriptor of a mesh-placed cohort's ``[K, n+1]``
+    state (JAX's ``NamedSharding(mesh, P(None, "v"))``): the vertex axis
+    split over ``mesh``'s devices in the placed graph's blocks, K whole
+    on each."""
+
+    mesh: LocalMesh
+    spec: tuple = (None, VERTEX_AXIS)
 
 
-def place_batched_csr(snap_or_graph, mesh) -> dict:
-    """The chunked CSR placed over a mesh for the batched kernels: the
-    serving plane's ``mesh=``, not ported (JAX's rests on GSPMD)."""
-    raise not_ported("place_batched_csr (a mesh-placed cohort)", item=9)
+def batched_state_sharding(mesh: LocalMesh) -> StateSharding:
+    """The ``[K, n+1]`` dist placement of mesh-placed batched runs:
+    vertex axis split over the mesh, K replicated."""
+    return StateSharding(mesh)
 
 
-__all__ = ["VERTEX_AXIS", "BlockLayout", "ShardedCSR", "batched_state_sharding",
+#: the placements of a snapshot or a graph dict, by mesh (the JAX
+#: package's ``_meshed`` holds one)
+MESH_CACHE = "_batched_csr_by_mesh"
+
+#: the mesh-placed blocks start on multiples of this many vertices, so a
+#: block's frontier words start on a byte at any bits-a-vertex
+#: (``ops/frontier.word_bits``: at most 32 bits, at least 1)
+BLOCK_ALIGN = 8
+
+
+def _host_chunked(snap_or_graph):
+    """``(dstT [8, Q] int32, colstart int64 [n+1], degc int64 [n], n)``
+    on the host: a snapshot's chunked layout, or a graph dict's arrays
+    (a device dict of ``build_chunked_csr``/``graph_from_numpy`` read
+    back, or a host dict of ``graph500.load_or_build``)."""
+    from titan_tpu_torch.models.bfs_hybrid import chunked_layout
+
+    def host(a):
+        return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+    if not isinstance(snap_or_graph, dict):
+        snap = snap_or_graph
+        dst_by_src, indptr = snap.out_csr()
+        deg = np.asarray(snap.out_degree).astype(np.int64)
+        dstT, colstart, degc, _ = chunked_layout(dst_by_src, indptr, deg,
+                                                 snap.n)
+        return dstT, colstart, degc, snap.n
+    g = snap_or_graph
+    colstart = host(g["colstart"]).astype(np.int64)
+    n = colstart.shape[0] - 1
+    if "degc" in g:
+        degc = host(g["degc"])[:n].astype(np.int64)
+    else:
+        degc = -(-host(g["deg"])[:n].astype(np.int64) // 8)
+    return host(g["dstT"]), colstart, degc, n
+
+
+def place_batched_csr(snap_or_graph, mesh: LocalMesh) -> dict:
+    """The chunked CSR placed over a one-process mesh for the batched
+    BFS: the vertices cut into ``mesh.size`` blocks by ``block_layout``
+    (balanced by chunk columns, the inner cuts on multiples of
+    ``BLOCK_ALIGN`` vertices), and on each block's device its chunked
+    CSR: its ``dstT`` columns plus a pad column of its own (``n+1``),
+    ``colstart`` re-based to its columns, its ``degc`` (0 at the pad
+    vertex), its bounds. The payload stays the global vertex ids. A
+    block the cuts leave empty holds nothing.
+
+    ``snap_or_graph`` is a snapshot (duck-typed, as ``build_chunked_csr``
+    takes it) or a graph dict, on the device or on the host. The result
+    holds ``n``, ``q_total``, ``_mesh``, ``_state_sharding``
+    (``batched_state_sharding(mesh)``, so ``"_state_sharding" in placed``
+    reads as in JAX), ``_layout`` and ``_shards``, and is cached on the
+    snapshot or the dict under ``MESH_CACHE`` by mesh. The snapshot's
+    ``refresh()``, ``apply_changes`` and ``rebuild_in_place`` drop it
+    (``GraphSnapshot._DEVICE_CACHES``), as does the serving scheduler's
+    eviction. Each block's upload counts on ``obs/devprof``'s
+    ``parallel.batched_csr`` H2D site."""
+    if not isinstance(mesh, LocalMesh):
+        raise TypeError(f"place_batched_csr takes a LocalMesh "
+                        f"(parallel.mesh.local_mesh), got "
+                        f"{type(mesh).__name__}; one process drives the "
+                        "cohort, as in the JAX package")
+    owner = snap_or_graph
+    is_dict = isinstance(owner, dict)
+    cache = owner.get(MESH_CACHE) if is_dict \
+        else getattr(owner, MESH_CACHE, None)
+    if cache is not None and mesh in cache:
+        return cache[mesh]
+    dstT, colstart, degc, n = _host_chunked(owner)
+    layout = block_layout(colstart, degc, n, mesh.size, align=BLOCK_ALIGN)
+    shards = []
+    for d, dev in enumerate(mesh.devices):
+        lo, hi = layout.block_window(d)
+        if lo >= hi:
+            continue
+        c0, c1 = int(colstart[lo]), int(colstart[hi])
+        dstT_b = np.full((8, c1 - c0 + 1), n + 1, np.int32)
+        dstT_b[:, :c1 - c0] = dstT[:, c0:c1]
+        cs_b = (colstart[lo:hi + 1] - c0).astype(np.int32)
+        degc_b = np.concatenate([degc[lo:hi], [0]]).astype(np.int32)
+        devprof.count_h2d("parallel.batched_csr", dstT_b.nbytes
+                          + cs_b.nbytes + degc_b.nbytes)
+        shards.append({"device": dev, "lo": lo, "hi": hi, "c0": c0,
+                       "n": hi - lo, "q_total": c1 - c0 + 1,
+                       "dstT": torch.from_numpy(dstT_b).to(dev),
+                       "colstart": torch.from_numpy(cs_b).to(dev),
+                       "degc": torch.from_numpy(degc_b).to(dev)})
+    placed = {"n": n, "q_total": int(dstT.shape[1]), "_mesh": mesh,
+              "_state_sharding": batched_state_sharding(mesh),
+              "_layout": layout, "_shards": shards}
+    if cache is None:
+        cache = {}
+        if is_dict:
+            owner[MESH_CACHE] = cache
+        else:
+            try:
+                setattr(owner, MESH_CACHE, cache)
+            except AttributeError:        # __slots__ or a frozen object
+                return placed
+    cache[mesh] = placed
+    return placed
+
+
+__all__ = ["BLOCK_ALIGN", "MESH_CACHE", "VERTEX_AXIS", "BlockLayout",
+           "ShardedCSR", "StateSharding", "batched_state_sharding",
            "block_layout", "exchange_found", "place_batched_csr", "shard_csr"]

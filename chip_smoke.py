@@ -7,8 +7,8 @@ Phases, each of which raises on failure:
 
 1. print the card's name and power limit; build the kernels from the
    sources in the checkout (``nvcc`` for ``csrc/frontier_round.cu``,
-   ``csrc/batched_exhaust.cu``, ``csrc/seg_scan.cu`` and
-   ``csrc/bfs_fused.cu``, ``g++`` for the
+   ``csrc/batched_exhaust.cu``, ``csrc/seg_scan.cu``,
+   ``csrc/bfs_fused.cu`` and ``csrc/probes.cu``, ``g++`` for the
    native host library: the Graph500 pipeline and the store scan's
    codec), all at once, and print each kernel's ptxas
    registers, shared memory and spills; start the host builds of the two
@@ -376,14 +376,36 @@ Phases, each of which raises on failure:
    from its checkpoint on the mesh, equal; then direct placed calls each
    equal to the one-device call: hops mode with level masks, jobs dropped
    by ``on_level``, an ``init_dist`` resume. The served runs' launches
-   are ``launches_by_path["mesh"]``.
+   are ``launches_by_path["mesh"]``;
+21. the probe kernels of experiments/ (``ops/probes.py``,
+   ``csrc/probes.cu``; last, after phase 7's s16 batch and
+   ``torch.cuda.empty_cache()``). 21a: each kernel against its plain
+   version on the card, bit-equal (``set`` by ``scatter_set_ok``: every
+   written cell holds a value written to it, untouched cells 0), at
+   small and ragged shapes: copies of 1, 3, 5 and 10^6 + 3 words; tables
+   of 3-4096 rows (8, 448, 449 and 4096 among them) and widths 4, 12
+   and 128 against row counts off the block, with and
+   without shifts; shuffles of 1-65537 rows; the three scatters into 8,
+   448 and 4096 rows (add wrapping); transposes of 1-1001 tiles;
+   probe3b's V1-V6, probe3c's W1-W3, probe3_dma's four cases with every
+   5th segment dead, and 16 B-16 KB segments at 1, 2, 3, 8, 31 and 32 in
+   flight, written ranges only. 21b: the six launch counts zeroed,
+   ``run_probes`` at the TPU probes' shapes (``probes.PROBES``: each
+   checked once at full size against its plain version, then timed by
+   CUDA events with its bound, sector model, plain version and library
+   call), each record printed with the card's name and power limit, the
+   counts read (``launches_by_path["probes"]``), the peak memory (under
+   6 GB) and the phase's wall (under ``PROBES_BUDGET_S``).
 
 The line before the last is the ``{"kernels": [...]}`` record of the
-five kernels (each record's ``launches`` sums its paths, listed under
+eleven kernels (each record's ``launches`` sums its paths, listed under
 ``launches_by_path``; ``seg_scan``'s ``rows`` holds phase 5b's two
 K-row replays; ``exhaust_summary`` is the sweep's frontier summary, one
 launch before each sweep; ``bfs_fused``'s ``per_source`` holds each
-source's split); the last
+source's split; the six probe kernels' records stand at each one's
+probe that moves the most bytes, by the sector model where there is
+one, ``cases`` holding all its probes);
+the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits 1 and prints no result.
 """
@@ -509,14 +531,36 @@ class Background(threading.Thread):
         return self.out
 
 
+def kernel_name(sym: str) -> str:
+    """A mangled kernel symbol's own name (the last of its length-prefixed
+    names), with its template arguments as mangled (``ILb1EE``: true;
+    ``ILi2EE``: 2; ``IfNS_3MaxEE``: float, Max)."""
+    nested = sym.startswith("_ZN")
+    i, name = 3 if nested else 2, sym
+    while (m := re.match(r"\d+", sym[i:])):
+        end = i + m.end() + int(m.group())
+        name, i = sym[i + m.end():end], end
+        if not nested:
+            break
+    args = re.match(r"I(?:L[a-z]\d+E|[a-z]|NS_\d+[A-Za-z_]\w*?E)+E", sym[i:])
+    return name + (args.group() if args else "")
+
+
 def ptxas_lines(lib) -> list[str]:
     """The register, shared-memory and spill lines of a kernel library's
-    ``-Xptxas -v`` log (``titan_tpu_torch.build``), each once, with the
-    number of the library's kernels that print it."""
+    ``-Xptxas -v`` log (``titan_tpu_torch.build``), each once, headed by
+    the kernels that print it (``kernel_name``)."""
+    by_line, name = {}, "?"
     with open(lib._name + ".log") as f:
-        lines = [re.sub(r"^ptxas info\s*:\s*", "", ln.strip()) for ln in f
-                 if re.search(r"registers|spill", ln)]
-    return [f"{lines.count(ln)}x {ln}" for ln in dict.fromkeys(lines)]
+        for ln in f:
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                name = kernel_name(m.group(1))
+            elif re.search(r"registers|spill", ln):
+                line = re.sub(r"^ptxas info\s*:\s*", "", ln.strip())
+                by_line.setdefault(line, []).append(name)
+    return [f"{', '.join(dict.fromkeys(names))}: {line}"
+            for line, names in by_line.items()]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -6835,6 +6879,208 @@ def phase_frontier_s26(F, P, FR, g, hg, card) -> int:
     return peel
 
 
+#: phase 21: each probe kernel's record on the kernels line, and the TPU
+#: kernel it stands for (the first of its sites in PERF.md section 6)
+PROBE_REPLACES = {
+    "stream_copy": "experiments/probe_pallas_gather.py:56",
+    "table_gather": "experiments/probe_pallas_gather.py:68",
+    "row_shuffle": "experiments/probe_pallas_gather.py:87",
+    "table_scatter": "experiments/probe_pallas_gather.py:100",
+    "tile_transpose": "experiments/probe2_rates.py:136",
+    "segment_copy": "experiments/probe3_dma.py:26"}
+#: phase 21's wall, the probes' checks and timing together
+PROBES_BUDGET_S = 30.0
+
+
+def probe_segment_cases(dev):
+    """Phase 21's segment copies: (name, src, starts, outpos, length,
+    out_len, lens, inflight). probe3b's V1-V6 (E = 2^22, 128 words; V1-V3
+    one copy into a 256-word output, V4-V6 1024 copies, V5's guard
+    ``s >= 0`` as ``lens``, V6 with 8 semaphores), probe3c's W1-W3 (8-row
+    segments of a [2^15, 128] pool: W1 row 0 into an [8, 128] output, W2
+    1024 and W3 4096 with 8 in flight), probe3_dma's four cases with
+    every 5th segment dead (``lens`` 0), and the kernel's edges: the
+    smallest segment (16 B), the largest (16 KB) at 8 in flight, and 1,
+    2, 3, 31 and 32 in flight over ragged counts."""
+    i32 = torch.int32
+    e = 1 << 22
+    edges = torch.arange(e, device=dev, dtype=i32)
+    st = (torch.arange(1024, device=dev, dtype=i32) * 128) % (e - 256)
+    k = torch.arange(1024, device=dev, dtype=i32)
+    one = torch.zeros(1, device=dev, dtype=i32)
+    cases = [("V1", edges, one, one, 128, 256, None, 1),
+             ("V2", edges, one, one, 128, 256, None, 1),
+             ("V3", edges, st[:1], one, 128, 256, None, 1),
+             ("V4", edges, st, k * 128, 128, 1024 * 128, None, 1),
+             ("V5", edges, st, k * 128, 128, 1024 * 128,
+              (st >= 0).to(i32), 1),
+             ("V6", edges, st, k * 128, 128, 1024 * 128, None, 8)]
+    r = 1 << 15
+    rows = torch.arange(r * 128, device=dev, dtype=i32)
+    st2 = (torch.arange(4096, device=dev, dtype=i32) * 7) % (r - 8)
+    k2 = torch.arange(4096, device=dev, dtype=i32)
+    cases += [("W1", rows, one, one, 8 * 128, 8 * 128, None, 1),
+              ("W2", rows, st2[:1024] * 128, k2[:1024] * 1024, 1024,
+               1024 * 1024, None, 1),
+              ("W3", rows, st2 * 128, k2 * 1024, 1024, 4096 * 1024, None,
+               8)]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    pool = torch.randint(0, 2**20, (1 << 25,), generator=gen, device=dev,
+                         dtype=i32)
+    for deg, pad, n in ((32, 128, 1 << 17), (128, 128, 1 << 17),
+                        (512, 512, 1 << 15), (4096, 4096, 1 << 12)):
+        kk = torch.arange(n, device=dev, dtype=i32)
+        lens = torch.where(kk % 5 == 4, 0, deg).to(i32)
+        cases.append((f"probe3_dma deg={deg}", pool, kk * deg, kk * pad,
+                      pad, n * pad, lens, 8))
+    for length, n, f in ((4, 1001, 8), (4096, 333, 8), (64, 999, 1),
+                         (64, 1000, 2), (36, 1003, 3), (128, 5001, 31),
+                         (128, 5003, 32)):
+        starts = torch.randint(0, (len(pool) - length) // 4, (n,),
+                               generator=gen, device=dev, dtype=i32) * 4
+        cases.append((f"L={length} n={n} inflight={f}", pool, starts,
+                      torch.randperm(n, generator=gen, device=dev).to(i32)
+                      * length, length, n * length, None, f))
+    return cases
+
+
+def phase_probe_cases(PR, dev) -> int:
+    """Phase 21a: each probe kernel against its plain version on the card,
+    bit-equal (``set`` by ``scatter_set_ok``), at small and ragged
+    shapes. Returns the number of cases."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2021)
+
+    def ri(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    n = 0
+    for shape in ((1,), (3,), (5,), (1000003,), (17, 128), (2049 * 128 + 3,)):
+        x = ri(-2**31, 2**31 - 1, shape)
+        check(torch.equal(PR.stream_copy(x), PR.stream_copy_reference(x)),
+              f"phase 21: stream_copy differs at {shape}")
+        n += 1
+    for t_rows, width in ((8, 128), (448, 128), (449, 128), (4096, 128),
+                          (3, 4), (100, 12)):
+        tab = ri(0, 2**20, (t_rows, width))
+        for rows in (1, 3, 1001, (1 << 18) + 5):
+            idx = ri(0, t_rows, (rows, width))
+            for shift in (None, ri(0, 32, (rows, width))):
+                check(torch.equal(PR.table_gather(tab, idx, shift),
+                                  PR.table_gather_reference(tab, idx,
+                                                            shift)),
+                      f"phase 21: table_gather differs at T={t_rows}, "
+                      f"W={width}, rows={rows}, bits={shift is not None}")
+                n += 1
+    for rows in (1, 7, 1001, 65537):
+        v, idx = ri(-2**31, 2**31 - 1, (rows, 128)), ri(0, 128, (rows, 128))
+        check(torch.equal(PR.row_shuffle(v, idx),
+                          PR.row_shuffle_reference(v, idx)),
+              f"phase 21: row_shuffle differs at {rows} rows")
+        n += 1
+    for t_rows in (8, 448, 4096):
+        for rows in (1, 1001, (1 << 17) + 3):
+            idx = ri(0, t_rows, (rows, 128))
+            for mode, (lo, hi) in (("set", (-100, 100)),
+                                   ("max", (-100, 100)),
+                                   ("add", (-2**31, 2**31 - 1))):
+                val = ri(lo, hi, (rows, 128))
+                got = PR.table_scatter(idx, val, t_rows, mode)
+                check(PR.scatter_set_ok(got, idx, val) if mode == "set"
+                      else torch.equal(got, PR.table_scatter_reference(
+                          idx, val, t_rows, mode)),
+                      f"phase 21: table_scatter {mode} differs at "
+                      f"T={t_rows}, rows={rows}")
+                n += 1
+    for rows in (128, 256, 128 * 1001):
+        v = ri(-2**31, 2**31 - 1, (rows, 128))
+        check(torch.equal(PR.tile_transpose(v),
+                          PR.tile_transpose_reference(v)),
+              f"phase 21: tile_transpose differs at {rows} rows")
+        n += 1
+    for name, src, starts, outpos, length, out_len, lens, f in \
+            probe_segment_cases(dev):
+        got = PR.segment_copy(src, starts, outpos, length, out_len, lens, f)
+        want = PR.segment_copy_reference(src, starts, outpos, length,
+                                         out_len, lens, f)
+        live = outpos if lens is None else outpos[lens > 0]
+        at = (live.long()[:, None]
+              + torch.arange(length, device=dev)).reshape(-1)
+        check(torch.equal(got[at], want[at]),
+              f"phase 21: segment_copy differs in {name}")
+        n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def say_probe(r: dict, card: str) -> None:
+    sector = "" if r["sector_share"] is None else (
+        f"; sector model {r['sector_bound_ms']:.4f} ms "
+        f"({100 * r['sector_share']:.1f}%, {r['sector_gb_s']:.1f} GB/s with "
+        f"the streams, {r['lookup_sector_gb_s']:.1f} GB/s of lookup sectors "
+        f"alone)")
+    lib = "none" if r["library_ms"] is None else \
+        f"{r['library']} {r['library_ms']:.4f} ms"
+    say(f"phase 21: {r['probe']} [{r['kernel']}, {r['where']}] on {card}: "
+        f"{r['ms']:.4f} ms (median {r['median_ms']:.4f}), "
+        f"{r['g_elem_s']:.2f} G elem/s, {r['gb_s']:.1f} GB/s; bound "
+        f"{r['bound_ms']:.4f} ms ({100 * r['share']:.1f}%){sector}; plain "
+        f"{r['plain_ms']:.4f} ms; library {lib}")
+
+
+def phase_probes(PR, card) -> list[dict]:
+    """Phase 21: the probe kernels of experiments/ (``ops/probes.py``).
+    21a holds each against its plain version on the card at small and
+    ragged shapes (``phase_probe_cases``); 21b zeroes the six launch
+    counts, runs ``run_probes`` (every probe at the TPU probes' shapes,
+    each checked once at full size, then timed) and reads the counts.
+    Returns the six kernels' records for the kernels line, each at its
+    probe that moves the most bytes (by the sector model where there is
+    one), its other probes under ``cases``."""
+    t0 = time.time()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cases = phase_probe_cases(PR, dev)
+    say(f"phase 21a: {cases} probe cases bit-equal to the plain versions "
+        f"({time.time() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for k in PR.KERNELS:
+        k.launches = 0
+    recs = PR.run_probes(dev)
+    launches = {k.__name__: k.launches for k in PR.KERNELS}
+    peak = torch.cuda.max_memory_allocated() - base
+    for r in recs:
+        say_probe(r, card)
+    out = []
+    for name, replaces in PROBE_REPLACES.items():
+        mine = [r for r in recs if r["kernel"] == name]
+        top = max(mine, key=lambda r: r["sector_bytes"] or r["bytes"])
+        check(launches[name] > 0, f"phase 21: {name} was never launched")
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "titan_tpu_torch/csrc/probes.cu",
+            "replaces": replaces, "launches": launches[name],
+            "launches_by_path": {"probes": launches[name]},
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": top["library_ms"], "probe": top["probe"],
+            "sector_bound_ms": top["sector_bound_ms"],
+            "cases": [{k: r[k] for k in (
+                "probe", "where", "ms", "median_ms", "g_elem_s", "gb_s",
+                "bound_ms", "share", "sector_share", "plain_ms",
+                "library", "library_ms")} for r in mine]})
+    wall = time.time() - t0
+    say(f"phase 21b: launches {launches}; peak {peak / 1e9:.2f} GB above "
+        f"the {base / 1e9:.2f} GB held before; phase 21 wall {wall:.1f} s")
+    check(peak < 6e9, f"phase 21: peak memory {peak / 1e9:.2f} GB >= 6 GB")
+    check(wall < PROBES_BUDGET_S, f"phase 21 took {wall:.1f} s "
+          f"(budget {PROBES_BUDGET_S} s)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6850,6 +7096,7 @@ def main() -> int:
     from titan_tpu_torch.olap.live import overlay as OV
     from titan_tpu_torch.ops import epoch_merge as EM
     from titan_tpu_torch.ops import frontier as F
+    from titan_tpu_torch.ops import probes as PRB
     from titan_tpu_torch.ops import seg_scan as S
     from titan_tpu_torch.traversal import olap_compile as OC
 
@@ -6858,16 +7105,17 @@ def main() -> int:
     t0 = time.time()
     builds = [Background(F.kernel_library), Background(F.exhaust_library),
               Background(S.kernel_library), Background(PF.kernel_library),
-              Background(native.library)]
+              Background(PRB.kernel_library), Background(native.library)]
     for b in builds:
         b.result()
-    say(f"phase 1: built frontier_round, batched_exhaust, seg_scan and "
-        f"bfs_fused (nvcc, sm_90a, one process each, all at once) and the "
-        f"native Graph500 library in {time.time() - t0:.1f} s")
+    say(f"phase 1: built frontier_round, batched_exhaust, seg_scan, "
+        f"bfs_fused and the probes (nvcc, sm_90a, one process each, all at "
+        f"once) and the native Graph500 library in {time.time() - t0:.1f} s")
     for name, lib in (("frontier_round", F.kernel_library()),
                       ("batched_exhaust", F.exhaust_library()),
                       ("seg_scan", S.kernel_library()),
-                      ("bfs_fused", PF.kernel_library())):
+                      ("bfs_fused", PF.kernel_library()),
+                      ("probes", PRB.kernel_library())):
         say(f"phase 1: ptxas {name}: " + "; ".join(ptxas_lines(lib)))
     say(f"phase 1: bfs_fused's cooperative grid: "
         f"{PF.kernel_library().tt_bfs_fused_grid()} blocks of 256 threads")
@@ -6968,6 +7216,9 @@ def main() -> int:
     del g
     torch.cuda.empty_cache()
     phase_batched_small(F, P, G, SN, OV, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    probe_recs = phase_probes(PRB, card)
     rec["replays"] += replays
     rec["k_sweep"] = sweep
     rec["launches_by_path"] = {"bfs": rec["launches"], **paths,
@@ -7001,8 +7252,8 @@ def main() -> int:
             r["launches_by_path"]["host_computer"] = host_runs.total[key]
         r["launches"] = sum(r["launches_by_path"].values())
     fused_rec["launches_by_path"] = {"bfs_fused": fused_rec["launches"]}
-    print(json.dumps({"kernels": [rec, seg_rec, x_rec, s_rec, fused_rec]}),
-          flush=True)
+    print(json.dumps({"kernels": [rec, seg_rec, x_rec, s_rec, fused_rec,
+                                  *probe_recs]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -566,3 +566,37 @@ def test_a_sharded_run_loads_no_jax():
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_the_probes_are_scanned_and_import_no_experiment():
+    """The probe kernels' module and script are scanned, and no file of
+    the port imports ``experiments/`` (``ops/probes.PROBES`` keeps its own
+    copy of the probes' shapes)."""
+    assert ROOT / "titan_tpu_torch" / "ops" / "probes.py" in FILES
+    assert ROOT / "scripts" / "torch_probes.py" in FILES
+    bad = {str(p.relative_to(ROOT)): m for p in FILES for m in _imports(p)
+           if m and m.split(".")[0] == "experiments"}
+    assert not bad, bad
+
+
+def test_the_probes_load_no_jax():
+    """In a fresh interpreter: the probe wrappers on CPU tensors load no
+    module of jax, titan_tpu or experiments."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        from titan_tpu_torch.ops import probes as PR
+        x = torch.arange(256 * 128, dtype=torch.int32).view(256, 128)
+        PR.tile_transpose(PR.stream_copy(x))
+        PR.table_gather(x[:8].contiguous(), x % 8, x % 32)
+        PR.row_shuffle(x, x % 128)
+        PR.table_scatter(x % 8, x, 8, "add")
+        PR.segment_copy(x.view(-1), x[0, :4].contiguous() * 4,
+                        x[0, :4].contiguous() * 4, 4, 16)
+        print(sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "titan_tpu", "experiments")))
+        """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -8,7 +8,8 @@ Phases, each of which raises on failure:
 1. print the card's name and power limit; build the kernels from the
    sources in the checkout (``nvcc`` for ``csrc/frontier_round.cu``,
    ``csrc/batched_exhaust.cu``, ``csrc/seg_scan.cu``,
-   ``csrc/bfs_fused.cu`` and ``csrc/probes.cu``, ``g++`` for the
+   ``csrc/bfs_fused.cu``, ``csrc/probes.cu`` and ``csrc/window_sum.cu``,
+   ``g++`` for the
    native host library: the Graph500 pipeline and the store scan's
    codec), all at once, and print each kernel's ptxas
    registers, shared memory and spills; start the host builds of the two
@@ -382,11 +383,16 @@ Phases, each of which raises on failure:
    ``torch.cuda.empty_cache()``). 21a: each kernel against its plain
    version on the card, bit-equal (``set`` by ``scatter_set_ok``: every
    written cell holds a value written to it, untouched cells 0), at
-   small and ragged shapes: copies of 1, 3, 5 and 10^6 + 3 words; tables
+   small and ragged shapes: copies of 1, 3, 5 and 10^6 + 3 words and
+   sizes off the copy's 4,096-word block; tables
    of 3-4096 rows (8, 448, 449 and 4096 among them) and widths 4, 12
    and 128 against row counts off the block, with and
-   without shifts; shuffles of 1-65537 rows; the three scatters into 8,
-   448 and 4096 rows (add wrapping); transposes of 1-1001 tiles;
+   without shifts; shuffles of 1-65537 rows; the three scatters (add
+   wrapping) on both of ``scatter_path``'s designs: the slab (stripes of
+   8 at 7-7263 rows of width 128, of 4 at widths 4, 12 and 132 and up
+   to 14527 rows; the largest slab of each stripe fills the block's
+   shared memory) and the global kernel (tables past the slab's shared
+   memory), over ragged row counts; transposes of 1-1001 tiles;
    probe3b's V1-V6, probe3c's W1-W3, probe3_dma's four cases with every
    5th segment dead, and 16 B-16 KB segments at 1, 2, 3, 8, 31 and 32 in
    flight, written ranges only. 21b: the six launch counts zeroed,
@@ -395,16 +401,28 @@ Phases, each of which raises on failure:
    CUDA events with its bound, sector model, plain version and library
    call), each record printed with the card's name and power limit, the
    counts read (``launches_by_path["probes"]``), the peak memory (under
-   6 GB) and the phase's wall (under ``PROBES_BUDGET_S``).
+   6 GB) and the phase's wall (under ``PROBES_BUDGET_S``);
+22. the row window sum (``ops/window_sum.py``, ``csrc/window_sum.cu``,
+   the port of the lint fixture's ``_ok_kernel``; right after phase 21).
+   22a: the kernel bit-equal to its plain version on the card, int32 and
+   float32 (signed zeros among the floats), widths 64, 128, 300, 1024
+   and 4099, rows 1, 2 and 1001, with and without ``masked``, ``block``
+   1, 64, 100 and 256 at width 300, and a row base off 16 bytes. 22b:
+   the count zeroed, ``run_window_sum`` at (2^21, 128) int32 and float32
+   (each checked once at full size, then timed beside its bound, its
+   plain version and, for float32, ``F.conv1d`` with a ones filter and
+   TF32 off, whose difference is printed), the count read
+   (``launches_by_path["window_sum"]``).
 
 The line before the last is the ``{"kernels": [...]}`` record of the
-eleven kernels (each record's ``launches`` sums its paths, listed under
+twelve kernels (each record's ``launches`` sums its paths, listed under
 ``launches_by_path``; ``seg_scan``'s ``rows`` holds phase 5b's two
 K-row replays; ``exhaust_summary`` is the sweep's frontier summary, one
 launch before each sweep; ``bfs_fused``'s ``per_source`` holds each
 source's split; the six probe kernels' records stand at each one's
 probe that moves the most bytes, by the sector model where there is
-one, ``cases`` holding all its probes);
+one, ``cases`` holding all its probes; ``row_window_sum``'s stands at
+int32, its float32 run under ``cases``);
 the last
 line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits 1 and prints no result.
@@ -456,6 +474,12 @@ SUMMARY_KERNEL = {"name": "exhaust_summary", "route": "cuda",
 FUSED_KERNEL = {"name": "bfs_fused", "route": "cuda",
                 "source": "titan_tpu_torch/csrc/bfs_fused.cu",
                 "replaces": "titan_tpu/models/bfs_hybrid_fused.py:311"}
+#: the lint fixture's Pallas kernel, never imported by any path: its
+#: port runs as a phase of its own (22)
+WINDOW_KERNEL = {
+    "name": "row_window_sum", "route": "cuda",
+    "source": "titan_tpu_torch/csrc/window_sum.cu",
+    "replaces": "tests/fixtures/graftlint/titan_tpu/models/pallas_ok.py:14"}
 #: float32 sums: |kernel - plain| <= FLOAT_SUM_RTOL * (the scan of |x|).
 #: The kernel adds in tile order (16 in a thread, a warp tree, a block
 #: tree: about 27 adds inside a tile, then the carry, a left fold with one
@@ -6956,7 +6980,8 @@ def phase_probe_cases(PR, dev) -> int:
         return torch.randint(lo, hi, shape, generator=gen, device=dev,
                              dtype=torch.int32)
     n = 0
-    for shape in ((1,), (3,), (5,), (1000003,), (17, 128), (2049 * 128 + 3,)):
+    for shape in ((1,), (3,), (5,), (1000003,), (17, 128), (2049 * 128 + 3,),
+                  (4096 * 3 + 4,), (4096 * 257 + 1025,), (4095,)):
         x = ri(-2**31, 2**31 - 1, shape)
         check(torch.equal(PR.stream_copy(x), PR.stream_copy_reference(x)),
               f"phase 21: stream_copy differs at {shape}")
@@ -6979,20 +7004,30 @@ def phase_probe_cases(PR, dev) -> int:
                           PR.row_shuffle_reference(v, idx)),
               f"phase 21: row_shuffle differs at {rows} rows")
         n += 1
-    for t_rows in (8, 448, 4096):
+    paths = set()
+    # (7263, 128) and (14527, 12): the largest slabs of stripes 8 and 4,
+    # at the block's shared-memory limit (probes.SHARED_BYTES)
+    for t_rows, width in ((8, 128), (448, 128), (4096, 128), (7, 128),
+                          (7263, 128), (14528, 128), (4096, 4), (7, 12),
+                          (4096, 132), (14527, 12), (14528, 12),
+                          (20000, 4)):
+        paths.add(PR.scatter_path(t_rows, width))
         for rows in (1, 1001, (1 << 17) + 3):
-            idx = ri(0, t_rows, (rows, 128))
+            idx = ri(0, t_rows, (rows, width))
             for mode, (lo, hi) in (("set", (-100, 100)),
                                    ("max", (-100, 100)),
                                    ("add", (-2**31, 2**31 - 1))):
-                val = ri(lo, hi, (rows, 128))
+                val = ri(lo, hi, (rows, width))
                 got = PR.table_scatter(idx, val, t_rows, mode)
                 check(PR.scatter_set_ok(got, idx, val) if mode == "set"
                       else torch.equal(got, PR.table_scatter_reference(
                           idx, val, t_rows, mode)),
                       f"phase 21: table_scatter {mode} differs at "
-                      f"T={t_rows}, rows={rows}")
+                      f"T={t_rows}, W={width}, rows={rows} (stripe "
+                      f"{PR.scatter_path(t_rows, width)})")
                 n += 1
+    check(paths == {0, 4, 8}, f"phase 21: the scatter cases took the "
+          f"designs {paths}, not the slab's two stripes and the global one")
     for rows in (128, 256, 128 * 1001):
         v = ri(-2**31, 2**31 - 1, (rows, 128))
         check(torch.equal(PR.tile_transpose(v),
@@ -7081,6 +7116,79 @@ def phase_probes(PR, card) -> list[dict]:
     return out
 
 
+def window_sum_cases(WS, dev):
+    """Phase 22a's inputs: (x, block, masked) on the card; the floats
+    hold -0.0 in every fifth column."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2022)
+
+    def rand(shape, dtype):
+        if dtype == torch.int32:
+            return torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                                 device=dev, dtype=dtype)
+        x = torch.randn(shape, generator=gen, device=dev)
+        x.view(-1)[::5] = -0.0
+        return x
+    for dtype in WS.DTYPES:
+        for width in (64, 128, 300, 1024, 4099):
+            for rows in (1, 2, 1001):
+                x = rand((rows, width), dtype)
+                for masked in (False, True):
+                    yield x, WS.BLOCK, masked
+        x = rand((5, 300), dtype)
+        for block in (1, 64, 100, 256):
+            yield x, block, True
+        # a row base 4 bytes off 16: the kernel's scalar path at W = 128
+        yield rand((1001 * 128 + 1,), dtype)[1:].view(1001, 128), \
+            WS.BLOCK, False
+
+
+def phase_window_sum(WS, card) -> dict:
+    """Phase 22: the row window sum, the port of the lint fixture's
+    ``_ok_kernel``. 22a holds the kernel bit-equal to its plain version
+    at small and ragged shapes; 22b zeroes the launch count, runs
+    ``run_window_sum`` at (2^21, 128) int32 and float32 and reads the
+    count. Returns the kernel's record for the kernels line (int32 at
+    the top, both dtypes under ``cases``)."""
+    t0 = time.time()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n = 0
+    for x, block, masked in window_sum_cases(WS, dev):
+        got = WS.row_window_sum(x, block=block, masked=masked)
+        want = WS.row_window_sum_reference(x, block=block, masked=masked)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"phase 22: row_window_sum differs at {tuple(x.shape)} "
+              f"{x.dtype}, block {block}, masked {masked}")
+        n += 1
+    torch.cuda.synchronize()
+    say(f"phase 22a: {n} window-sum cases bit-equal to the plain version "
+        f"({time.time() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    WS.row_window_sum.launches = 0
+    recs = WS.run_window_sum(dev)
+    launches = WS.row_window_sum.launches
+    check(launches > 0, "phase 22: row_window_sum was never launched")
+    for r in recs:
+        lib = "none" if r["library_ms"] is None else (
+            f"{r['library']} {r['library_ms']:.4f} ms (TF32 off; max "
+            f"|conv - ladder| {r['library_max_abs_diff']:.3g})")
+        say(f"phase 22: row_window_sum {r['dtype']} {tuple(r['shape'])} on "
+            f"{card}: {r['ms']:.4f} ms (median {r['median_ms']:.4f}), "
+            f"{r['gb_s']:.1f} GB/s; bound {r['bound_ms']:.4f} ms "
+            f"({100 * r['share']:.1f}%); plain {r['plain_ms']:.4f} ms; "
+            f"library {lib}")
+    say(f"phase 22b: launches {launches}; phase 22 wall "
+        f"{time.time() - t0:.1f} s")
+    top = recs[0]
+    return {**WINDOW_KERNEL, "launches": launches,
+            "launches_by_path": {"window_sum": launches},
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": top["library_ms"], "dtype": top["dtype"],
+            "cases": recs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7098,6 +7206,7 @@ def main() -> int:
     from titan_tpu_torch.ops import frontier as F
     from titan_tpu_torch.ops import probes as PRB
     from titan_tpu_torch.ops import seg_scan as S
+    from titan_tpu_torch.ops import window_sum as WS
     from titan_tpu_torch.traversal import olap_compile as OC
 
     card = card_line()
@@ -7105,17 +7214,20 @@ def main() -> int:
     t0 = time.time()
     builds = [Background(F.kernel_library), Background(F.exhaust_library),
               Background(S.kernel_library), Background(PF.kernel_library),
-              Background(PRB.kernel_library), Background(native.library)]
+              Background(PRB.kernel_library), Background(WS.kernel_library),
+              Background(native.library)]
     for b in builds:
         b.result()
     say(f"phase 1: built frontier_round, batched_exhaust, seg_scan, "
-        f"bfs_fused and the probes (nvcc, sm_90a, one process each, all at "
+        f"bfs_fused, the probes and the window sum (nvcc, sm_90a, one "
+        f"process each, all at "
         f"once) and the native Graph500 library in {time.time() - t0:.1f} s")
     for name, lib in (("frontier_round", F.kernel_library()),
                       ("batched_exhaust", F.exhaust_library()),
                       ("seg_scan", S.kernel_library()),
                       ("bfs_fused", PF.kernel_library()),
-                      ("probes", PRB.kernel_library())):
+                      ("probes", PRB.kernel_library()),
+                      ("window_sum", WS.kernel_library())):
         say(f"phase 1: ptxas {name}: " + "; ".join(ptxas_lines(lib)))
     say(f"phase 1: bfs_fused's cooperative grid: "
         f"{PF.kernel_library().tt_bfs_fused_grid()} blocks of 256 threads")
@@ -7219,6 +7331,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     probe_recs = phase_probes(PRB, card)
+    window_rec = phase_window_sum(WS, card)
     rec["replays"] += replays
     rec["k_sweep"] = sweep
     rec["launches_by_path"] = {"bfs": rec["launches"], **paths,
@@ -7253,7 +7366,7 @@ def main() -> int:
         r["launches"] = sum(r["launches_by_path"].values())
     fused_rec["launches_by_path"] = {"bfs_fused": fused_rec["launches"]}
     print(json.dumps({"kernels": [rec, seg_rec, x_rec, s_rec, fused_rec,
-                                  *probe_recs]}), flush=True)
+                                  *probe_recs, window_rec]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

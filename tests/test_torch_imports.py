@@ -1,6 +1,7 @@
 """The port stands alone: no module of titan_tpu_torch, and neither
 chip_smoke.py nor the port's scripts (scripts/torch_*.py), imports jax or
-anything of the JAX package titan_tpu."""
+anything of the JAX package titan_tpu, of the TPU probes under
+experiments/ or of the tests' tree (the lint fixtures among it)."""
 
 import ast
 import pathlib
@@ -20,7 +21,7 @@ FILES = sorted((ROOT / "titan_tpu_torch").rglob("*.py")) \
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "titan_tpu")
+    return top in ("jax", "jaxlib", "titan_tpu", "experiments", "tests")
 
 
 def _imports(path):
@@ -237,7 +238,10 @@ def test_a_graph_run_loads_no_jax():
 
 def test_guard_sees_the_prefix_correctly():
     assert _forbidden("titan_tpu.native") and _forbidden("jax.numpy")
+    assert _forbidden("experiments.probe2_rates")
+    assert _forbidden("tests.fixtures.graftlint.titan_tpu.models.pallas_ok")
     assert not _forbidden("titan_tpu_torch.ops.frontier")
+    assert not _forbidden("titan_tpu_torch.ops.window_sum")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)

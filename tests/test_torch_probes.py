@@ -297,6 +297,40 @@ def test_scatter_set_ok_refuses_wrong_tables():
     assert (~written).any() and not PR.scatter_set_ok(stray, idx, val)
 
 
+@pytest.mark.parametrize("t_rows,width,stripe", [
+    (4096, 128, 8), (7, 128, 8), (1, 8, 8),
+    (7263, 128, 8),      # 8 x 7264 words: 232,448 B, the limit
+    (7264, 128, 4),      # one row more: stripes of 4
+    (14527, 128, 4),     # 4 x 14528 words: the limit
+    (14528, 128, 0),     # past it: the global kernel
+    (4096, 4, 4), (4096, 12, 4), (4096, 132, 4), (7, 12, 4),
+    (14528, 12, 0), (20000, 4, 0)])
+def test_scatter_path_by_shape(t_rows, width, stripe):
+    """The scatter's design is a pure function of the table's shape: the
+    widest stripe that divides the width and whose slab fits a block's
+    shared memory, else 0 (the global kernel); a width of 4k is never
+    left with a partial stripe."""
+    assert PR.scatter_path(t_rows, width) == stripe
+    if stripe:
+        assert width % stripe == 0
+        assert 4 * stripe * (t_rows + 1) <= PR.SHARED_BYTES
+
+
+@pytest.mark.parametrize("t_rows,width", [(7, 128), (14528, 12), (20, 4)])
+def test_scatter_plain_on_every_path_shape(t_rows, width):
+    """The plain version at shapes of each design, against numpy."""
+    rng = np.random.default_rng(t_rows + width)
+    idx = rng.integers(0, t_rows, (33, width), dtype=I32)
+    for mode in PR.SCATTER_MODES:
+        val = rng.integers(-100, 100, (33, width), dtype=I32)
+        got = PR.table_scatter(_t(idx), _t(val), t_rows, mode)
+        if mode == "set":
+            assert PR.scatter_set_ok(got, _t(idx), _t(val))
+        else:
+            np.testing.assert_array_equal(
+                got.numpy(), _numpy_scatter(idx, val, t_rows, mode))
+
+
 # ------------------------------------------------------------ segment copy
 
 def _written(out, outpos, length, lens=None):

@@ -71,19 +71,31 @@ __device__ __forceinline__ int64_t thread_count() {
 // out = x. Replaces the TPU probes' copy kernels: copy_kernel
 // (experiments/probe_pallas_gather.py:56, stream_copy :61) and the copy
 // lambda of experiments/probe2_rates.py:178 (through stream1, :44).
-// Bound: bytes, each element read once and written once (8 B). Design:
-// 16-byte loads and stores, neighbouring threads on neighbouring
-// vectors, with the streaming hints (__ldcs/__stcs: touched once, kept
-// out of L2's way); the n % 4 tail by the first threads.
-__global__ void stream_copy_kernel(const int32_t* __restrict__ x,
-                                   int32_t* __restrict__ out, int64_t n) {
+// Bound: bytes, each element read once and written once (8 B).
+// Design (scripts/torch_copy_scatter_variants.py keeps the original
+// kernel and the designs tried): 16-byte loads and stores,
+// neighbouring threads on neighbouring vectors, one vector a thread and
+// the grid as many blocks of kCopyThreads as the vectors need, so the
+// block scheduler, not a loop, walks the array. The original kernel looped
+// over a grid of the resident blocks (its SASS: one LDG.E.EF.128, then
+// its STG, an iteration) at 84-86% of the bound; over that grid 2-8
+// loads a thread issued before the stores moved it under 1%, and bulk
+// copies through shared memory (cp.async.bulk) reached 87-90%, while one
+// vector a thread over the full grid reached 90-91%, with or without
+// the streaming hints or a 256 B L2 prefetch, at 128-1024 threads a
+// block (H100 80GB HBM3, 700 W). The n % 4 tail by block 0's first
+// threads.
+constexpr int kCopyThreads = 1024;
+
+__global__ void __launch_bounds__(kCopyThreads)
+    stream_copy_kernel(const int32_t* __restrict__ x,
+                       int32_t* __restrict__ out, int64_t n) {
   const int64_t n4 = n / 4;
   const int4* x4 = reinterpret_cast<const int4*>(x);
   int4* o4 = reinterpret_cast<int4*>(out);
-  for (int64_t q = thread_id(); q < n4; q += thread_count())
-    __stcs(o4 + q, __ldcs(x4 + q));
-  const int64_t t = n4 * 4 + thread_id();
-  if (t < n) out[t] = x[t];
+  for (int64_t q = thread_id(); q < n4; q += thread_count()) o4[q] = x4[q];
+  if (blockIdx.x == 0 && threadIdx.x < n - n4 * 4)
+    out[n4 * 4 + threadIdx.x] = x[n4 * 4 + threadIdx.x];
 }
 
 // ----------------------------------------------------------- table_gather
@@ -197,24 +209,37 @@ __global__ void row_shuffle_kernel(const int32_t* __restrict__ v,
 
 // ---------------------------------------------------------- table_scatter
 // tab[idx[i, j], j] set to (kMode 0), maxed with (1) or added to (2)
-// val[i, j], into a table the wrapper zeroed; add wraps as int32. With
-// set, a cell written more than once holds one of the values written to
-// it, whichever store lands last. Replaces make_scatter_kernel's kernels
-// (experiments/probe_pallas_gather.py:100, lane_scatter :115; modes set
-// and at_set are set, at_max max, at_add add), which scatter into a
-// VMEM scratch and never write their output.
+// val[i, j], into a zeroed table; add wraps as int32. With set, a cell
+// written more than once holds one of the values written to it.
+// Replaces make_scatter_kernel's kernels (experiments/probe_pallas_gather
+// .py:100, lane_scatter :115; modes set and at_set are set, at_max max,
+// at_add add), which scatter into a VMEM scratch and never write their
+// output.
 // Bound: bytes, idx and val read once (8 B an element) and the table
-// written once; the atomics into a 2 MB table are served by L2, and
-// contention on hot cells (4096 rows: each cell takes 128 updates of the
-// probes' 2^19 rows) is what the probe measures beside the bytes.
-// Design: one thread for each 4 elements (columns j..j+3 of one row),
-// idx and val loaded as int4 with the streaming hints, 4 independent
-// atomics a thread (atomicMax, atomicAdd, whose results are unused, so
-// they compile to reductions) or plain stores for set.
-// Not built, the faster design for later: column j only ever receives
-// idx[:, j], so a block that owns 8 columns could keep their 128 KB slab
-// (4096 rows x 8 columns) in shared memory, do its atomics there, and
-// write the slab once; that needs idx and val read by column blocks.
+// written once.
+// Design (scripts/torch_copy_scatter_variants.py keeps the original
+// kernel and the designs tried): column j only ever
+// receives idx[:, j], so the table splits into stripes of C columns (8,
+// or 4 where the width is not a multiple of 8) whose rows fit one
+// block's shared memory (the slab, C x (T + 1) words, column by column
+// with a stride of T + 1 so a warp's updates and reads spread over the
+// banks). Block b takes stripe b % S and range b / S of the idx rows
+// (S stripes x R ranges, R the blocks that fit on the card at once over
+// S): C / 4 int4s of idx and of val a row, 4 rows' loads in flight a
+// thread, updates into its zeroed slab by shared-memory atomics (plain
+// stores for set), then one global atomic or store for each nonzero
+// cell of the slab into the zeroed table (a zero adds nothing, maxes
+// nothing past the zeros, and is a value the cell may hold for set):
+// 16 times fewer global updates than the original design at the probe's
+// shape, which does one a update (128 a cell of the 2 MB table, resolved
+// in L2). Tried and dropped: a cluster of blocks a stripe reducing its
+// slabs through distributed shared memory and writing every cell once
+// (no memset, no global atomic) was 20-40% slower at the probe's shape.
+// The original design stays for tables whose stripe of 4 columns does not
+// fit (scatter_path in ops/probes.py decides by shape).
+constexpr int kSlabThreads = 1024;
+constexpr int kSlabUnroll = 4;
+
 template <int kMode>
 __device__ __forceinline__ void put(int32_t* p, int32_t v) {
   if (kMode == 0)
@@ -255,6 +280,93 @@ cudaError_t launch_scatter(const int32_t* idx, const int32_t* val,
   if (e != cudaSuccess) return e;
   kernel<<<grid, kThreads, 0, st>>>(idx, val, tab, width, n4);
   return cudaGetLastError();
+}
+
+template <int kMode, int C>
+__global__ void __launch_bounds__(kSlabThreads)
+    table_scatter_slab_kernel(const int32_t* __restrict__ idx,
+                              const int32_t* __restrict__ val,
+                              int32_t* __restrict__ tab, int width,
+                              int t_rows, int64_t rows, int ranges) {
+  extern __shared__ int4 slab4[];
+  int32_t* slab = reinterpret_cast<int32_t*>(slab4);
+  const int ld = t_rows + 1;
+  const int stripes = width / C;
+  const int stripe = int(blockIdx.x % stripes);
+  const int range = int(blockIdx.x / stripes);
+  for (int i = threadIdx.x; i < C * ld; i += blockDim.x) slab[i] = 0;
+  __syncthreads();
+  constexpr int Q = C / 4;  // int4s of a stripe's row
+  const int64_t r0 = rows * range / ranges;
+  const int64_t units = (rows * (range + 1) / ranges - r0) * Q;
+  const int4* i4 = reinterpret_cast<const int4*>(idx);
+  const int4* v4 = reinterpret_cast<const int4*>(val);
+  const int w4 = width / 4;
+  for (int64_t u0 = threadIdx.x; u0 < units;
+       u0 += int64_t(blockDim.x) * kSlabUnroll) {
+    int4 k[kSlabUnroll], v[kSlabUnroll];
+#pragma unroll
+    for (int j = 0; j < kSlabUnroll; ++j) {
+      const int64_t u = u0 + int64_t(j) * blockDim.x;
+      k[j] = v[j] = make_int4(0, 0, 0, 0);
+      if (u < units) {
+        const int64_t at = (r0 + u / Q) * w4 + stripe * Q + u % Q;
+        k[j] = __ldcs(i4 + at);
+        v[j] = __ldcs(v4 + at);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kSlabUnroll; ++j) {
+      const int64_t u = u0 + int64_t(j) * blockDim.x;
+      if (u < units) {
+        int32_t* col = slab + int(u % Q) * 4 * ld;
+        put<kMode>(col + k[j].x, v[j].x);
+        put<kMode>(col + ld + k[j].y, v[j].y);
+        put<kMode>(col + 2 * ld + k[j].z, v[j].z);
+        put<kMode>(col + 3 * ld + k[j].w, v[j].w);
+      }
+    }
+  }
+  __syncthreads();
+  // the slab's nonzero cells, row by row: a warp's atomics or stores
+  // fall on whole rows of the stripe
+  for (int i = threadIdx.x; i < t_rows * C; i += blockDim.x) {
+    const int row = i / C, c = i % C;
+    const int32_t v = slab[c * ld + row];
+    if (v != 0) put<kMode>(tab + int64_t(row) * width + stripe * C + c, v);
+  }
+}
+
+template <int kMode, int C>
+cudaError_t launch_scatter_slab(const int32_t* idx, const int32_t* val,
+                                int32_t* tab, int width, int t_rows,
+                                int64_t rows, cudaStream_t st) {
+  auto* kernel = table_scatter_slab_kernel<kMode, C>;
+  const int stripes = width / C;
+  unsigned fit;
+  const cudaError_t e = grid_for(kernel, kSlabThreads,
+                                 size_t(C) * (t_rows + 1) * 4, INT32_MAX,
+                                 &fit);
+  if (e != cudaSuccess) return e;
+  const int ranges = int(fit) / stripes > 1 ? int(fit) / stripes : 1;
+  kernel<<<unsigned(stripes * ranges), kSlabThreads,
+           size_t(C) * (t_rows + 1) * 4, st>>>(idx, val, tab, width, t_rows,
+                                               rows, ranges);
+  return cudaGetLastError();
+}
+
+template <int kMode>
+cudaError_t scatter_mode(const int32_t* idx, const int32_t* val,
+                         int32_t* tab, int64_t t_rows, int width, int64_t n,
+                         int stripe, cudaStream_t st) {
+  if (n == 0) return cudaSuccess;
+  if (stripe == 8)
+    return launch_scatter_slab<kMode, 8>(idx, val, tab, width, int(t_rows),
+                                         n / width, st);
+  if (stripe == 4)
+    return launch_scatter_slab<kMode, 4>(idx, val, tab, width, int(t_rows),
+                                         n / width, st);
+  return launch_scatter<kMode>(idx, val, tab, width, n / 4, st);
 }
 
 // --------------------------------------------------------- tile_transpose
@@ -438,13 +550,11 @@ int tt_probe_max_inflight(void) { return kMaxInflight; }
 int tt_stream_copy(const int32_t* x, int32_t* out, int64_t n, void* stream) {
   if (n < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  unsigned grid;
-  const int64_t need = (n / 4 + kThreads) / kThreads;
-  const cudaError_t e = grid_for(stream_copy_kernel, kThreads, 0, need,
-                                 &grid);
-  if (e != cudaSuccess) return e;
-  stream_copy_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, n);
+  int64_t grid = (n / 4 + kCopyThreads - 1) / kCopyThreads;
+  if (grid < 1) grid = 1;
+  if (grid > 0x7fffffff) grid = 0x7fffffff;
+  stream_copy_kernel<<<unsigned(grid), kCopyThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(x, out, n);
   return cudaGetLastError();
 }
 
@@ -478,22 +588,26 @@ int tt_row_shuffle(const int32_t* v, const int32_t* idx, int32_t* out,
   return cudaGetLastError();
 }
 
-// tab [*, width] (zeroed by the caller) updated by idx and val [n / width,
-// width], every index a row of tab; mode 0 set, 1 max, 2 add. width % 4
-// == 0, n % width == 0, idx and val 16-byte aligned.
+// tab [t_rows, width] (zeroed by the caller) updated by idx and val
+// [n / width, width], every index a row of tab; mode 0 set, 1 max, 2
+// add. stripe 8 or 4: the slab design (C x (t_rows + 1) words must fit a
+// block's shared memory); stripe 0: the global design. width % 4 == 0 (%
+// stripe), n % width == 0, idx and val 16-byte aligned.
 int tt_table_scatter(const int32_t* idx, const int32_t* val, int32_t* tab,
-                     int width, int64_t n, int mode, void* stream) {
-  if (width < 4 || width % 4 != 0 || n < 0 || n % width != 0)
+                     int64_t t_rows, int width, int64_t n, int mode,
+                     int stripe, void* stream) {
+  if (width < 4 || width % 4 != 0 || n < 0 || n % width != 0 ||
+      t_rows < 1 || (stripe != 0 && stripe != 4 && stripe != 8) ||
+      (stripe && width % stripe != 0))
     return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0:
-      return launch_scatter<0>(idx, val, tab, width, n / 4, st);
+      return scatter_mode<0>(idx, val, tab, t_rows, width, n, stripe, st);
     case 1:
-      return launch_scatter<1>(idx, val, tab, width, n / 4, st);
+      return scatter_mode<1>(idx, val, tab, t_rows, width, n, stripe, st);
     case 2:
-      return launch_scatter<2>(idx, val, tab, width, n / 4, st);
+      return scatter_mode<2>(idx, val, tab, t_rows, width, n, stripe, st);
   }
   return cudaErrorInvalidValue;
 }

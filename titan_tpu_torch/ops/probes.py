@@ -21,7 +21,10 @@ these give the card's own, beside the data sheet's 3.35 TB/s.
     a zeroed ``[rows, W]`` table, then ``tab[idx[i, j], j]`` set to
     (``"set"``), maxed with (``"max"``) or added to (``"add"``, wrapping)
     ``val[i, j]``. With ``set`` a cell written more than once holds one of
-    the values written to it (``scatter_set_ok``).
+    the values written to it (``scatter_set_ok``). The kernel's design
+    follows the shape (``scatter_path``): column stripes whose rows fit a
+    block's shared memory, updated there and flushed once, or, for a
+    table too tall for that, a global atomic or store an update.
 ``tile_transpose(v)``
     each 128 x 128 tile of ``v [N, 128]`` transposed in place of itself.
 ``segment_copy(src, starts, outpos, length, out_len, lens=None, inflight=8)``
@@ -61,12 +64,17 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM (NVIDIA data sheet)
 L2_BYTES = 50 * 2**20            # H100 SXM (NVIDIA data sheet)
 SECTOR_BYTES = 32                # the smallest read from device memory
 WIDTH = 128                      # the TPU probes' lane width
-#: a block's shared memory for segment_copy's stages: the 227 KB opt-in
-#: limit less the kernel's static barriers and offsets (32 * 16 B)
-MAX_STAGE_BYTES = 232448 - 512
+#: a block's shared memory: the 227 KB opt-in limit, all of it for
+#: table_scatter's slab (the slab kernel has no static shared memory)
+SHARED_BYTES = 232448
+#: segment_copy's stages: less the kernel's static barriers and offsets
+#: (32 * 16 B)
+MAX_STAGE_BYTES = SHARED_BYTES - 512
 #: a bulk copy's bytes are counted by an mbarrier's transaction count
 MAX_COPY_BYTES = 2**20 - 16
 MAX_INFLIGHT = 32
+#: table_scatter's stripe widths, widest first
+STRIPES = (8, 4)
 SCATTER_MODES = ("set", "max", "add")
 _SCATTER_REDUCE = {"max": "amax", "add": "sum"}
 
@@ -259,7 +267,7 @@ def kernel_library() -> ctypes.CDLL:
             ("tt_stream_copy", [p, p, i64, p]),
             ("tt_table_gather", [p, p, p, p, i64, i32, i64, p]),
             ("tt_row_shuffle", [p, p, p, i64, p]),
-            ("tt_table_scatter", [p, p, p, i32, i64, i32, p]),
+            ("tt_table_scatter", [p, p, p, i64, i32, i64, i32, i32, p]),
             ("tt_tile_transpose", [p, p, i64, p]),
             ("tt_segment_copy", [p, p, p, p, p, i64, i64, i32, p])):
         fn = getattr(lib, name)
@@ -386,13 +394,27 @@ def row_shuffle(v, idx):
         return _launch_row_shuffle(v, idx)
 
 
+def scatter_path(t_rows: int, width: int) -> int:
+    """The scatter's design, by shape alone: the slab's stripe width, the
+    widest of ``STRIPES`` that divides ``width`` and whose slab (its
+    columns of every table row, ``C * (t_rows + 1)`` words) fits a
+    block's shared memory; 0 where none fits: the global design, a global
+    atomic or store an update into a zeroed table. Widths are multiples
+    of 4, so a stripe is never partial."""
+    for c in STRIPES:
+        if width % c == 0 and 4 * c * (t_rows + 1) <= SHARED_BYTES:
+            return c
+    return 0
+
+
 def _launch_table_scatter(idx, val, rows: int, mode: str):
     _check_aligned("table_scatter", idx, val)
+    stripe = scatter_path(rows, idx.shape[1])
     tab = torch.zeros((rows, idx.shape[1]), dtype=torch.int32,
                       device=idx.device)
     _raise_on(kernel_library().tt_table_scatter(
-        idx.data_ptr(), val.data_ptr(), tab.data_ptr(), idx.shape[1],
-        idx.numel(), SCATTER_MODES.index(mode), _stream(idx)),
+        idx.data_ptr(), val.data_ptr(), tab.data_ptr(), rows, idx.shape[1],
+        idx.numel(), SCATTER_MODES.index(mode), stripe, _stream(idx)),
         "table_scatter")
     table_scatter.launches += 1
     return tab
@@ -512,20 +534,32 @@ del _k
 
 # ------------------------------------------------------------------ timing
 
+#: calls a timed sample holds back to back
+BACK_TO_BACK = 5
+
+
 def _time(fn, reps: int) -> tuple[float, float]:
-    """(best, median) ms of ``fn()`` on the card by CUDA events, after one
-    warm-up call."""
+    """(best, median) ms of one ``fn()`` on the card by CUDA events,
+    after one warm-up call. Each of ``reps`` samples times
+    ``BACK_TO_BACK`` calls back to back and divides by their number; an
+    untimed call is enqueued before the start event, so the host's
+    dispatch of the timed calls (allocation, checks, the ctypes call:
+    10-20 us) overlaps the card's work and a sample is the card's time,
+    not the time it waited for a call's dispatch (a kernel shorter than
+    its dispatch still waits)."""
     fn()
     torch.cuda.synchronize()
     ms = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
+        a.record()
+        for _ in range(BACK_TO_BACK):
+            fn()
         b.record()
         b.synchronize()
-        ms.append(a.elapsed_time(b))
+        ms.append(a.elapsed_time(b) / BACK_TO_BACK)
     return min(ms), statistics.median(ms)
 
 
@@ -668,15 +702,15 @@ def _max_abs_err(kernel: str, got, want, args) -> int:
 def run_probes(device=None, reps: int = 5, seed: int = 0) -> list[dict]:
     """Time every probe of ``PROBES`` on the card: the kernel (each probe
     checked once through its wrapper and held to its plain version, then
-    the launch alone timed: best and median of ``reps`` after a warm-up,
-    by CUDA events), the plain version and the library call where there
-    is one. Inputs come from ``seed`` on the card. Raises on the CPU,
-    where no card figure can be taken. One record a probe: ms, G elem/s
-    (the unit the TPU probes print), GB/s of the byte model, the bound
-    (``bound_ms``) and its share, the sector model's bound and share for
-    a table beyond L2 (and the rate of the lookups' sectors alone), where
-    the random accesses land, the plain version's and the library call's
-    ms."""
+    the launch alone timed by ``_time``: best and median of ``reps``
+    samples of ``BACK_TO_BACK`` calls, by CUDA events), the plain version
+    and the library call where there is one. Inputs come from ``seed`` on
+    the card. Raises on the CPU, where no card figure can be taken. One
+    record a probe: ms, G elem/s (the unit the TPU probes print), GB/s of
+    the byte model, the bound (``bound_ms``) and its share, the sector
+    model's bound and share for a table beyond L2 (and the rate of the
+    lookups' sectors alone), where the random accesses land, the plain
+    version's and the library call's ms."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("run_probes times the kernels on a card; a CPU run "

@@ -384,10 +384,11 @@ Phases, each of which raises on failure:
    version on the card, bit-equal (``set`` by ``scatter_set_ok``: every
    written cell holds a value written to it, untouched cells 0), at
    small and ragged shapes: copies of 1, 3, 5 and 10^6 + 3 words and
-   sizes off the copy's 4,096-word block; tables
-   of 3-4096 rows (8, 448, 449 and 4096 among them) and widths 4, 12
-   and 128 against row counts off the block, with and
-   without shifts; shuffles of 1-65537 rows; the three scatters (add
+   sizes off the copy's 4,096-word block; tables of 3-16384 rows and
+   widths 4-128 on each side of every edge of ``gather_path`` (the
+   per-lookup design, the slabs of 16 and 8 columns, the pair; widths
+   of one and three stripes), against row counts off the block, with
+   and without shifts; shuffles of 1-65537 rows; the three scatters (add
    wrapping) on both of ``scatter_path``'s designs: the slab (stripes of
    8 at 7-7263 rows of width 128, of 4 at widths 4, 12 and 132 and up
    to 14527 rows; the largest slab of each stripe fills the block's
@@ -395,13 +396,17 @@ Phases, each of which raises on failure:
    memory), over ragged row counts; transposes of 1-1001 tiles;
    probe3b's V1-V6, probe3c's W1-W3, probe3_dma's four cases with every
    5th segment dead, and 16 B-16 KB segments at 1, 2, 3, 8, 31 and 32 in
-   flight, written ranges only. 21b: the six launch counts zeroed,
-   ``run_probes`` at the TPU probes' shapes (``probes.PROBES``: each
-   checked once at full size against its plain version, then timed by
-   CUDA events with its bound, sector model, plain version and library
-   call), each record printed with the card's name and power limit, the
-   counts read (``launches_by_path["probes"]``), the peak memory (under
-   6 GB) and the phase's wall (under ``PROBES_BUDGET_S``);
+   flight on both of ``segment_path``'s designs (warps to 4 KB, bulk
+   copies past it), some with every 5th segment dead, written ranges
+   only; the cases must reach every design of the three kernels that
+   pick one by shape. 21b: the six launch counts zeroed, ``run_probes``
+   at the TPU probes' shapes (``probes.PROBES``: each checked once at
+   full size against its plain version, then timed by CUDA events with
+   its bound, sector model, plain version and library call), each record
+   printed with the card's name and power limit and the design taken
+   where the kernel picks one, the counts read
+   (``launches_by_path["probes"]``), the peak memory (under 6 GB) and
+   the phase's wall (under ``PROBES_BUDGET_S``);
 22. the row window sum (``ops/window_sum.py``, ``csrc/window_sum.cu``,
    the port of the lint fixture's ``_ok_kernel``; right after phase 21).
    22a: the kernel bit-equal to its plain version on the card, int32 and
@@ -6923,9 +6928,11 @@ def probe_segment_cases(dev):
     ``s >= 0`` as ``lens``, V6 with 8 semaphores), probe3c's W1-W3 (8-row
     segments of a [2^15, 128] pool: W1 row 0 into an [8, 128] output, W2
     1024 and W3 4096 with 8 in flight), probe3_dma's four cases with
-    every 5th segment dead (``lens`` 0), and the kernel's edges: the
-    smallest segment (16 B), the largest (16 KB) at 8 in flight, and 1,
-    2, 3, 31 and 32 in flight over ragged counts."""
+    every 5th segment dead (``lens`` 0), and the kernels' edges: the
+    smallest segment (16 B), the largest (16 KB) at 8 in flight, 1, 2, 3,
+    31 and 32 in flight over ragged counts, and lengths on both sides of
+    ``segment_path``'s switch (4 KB), some with every 5th segment
+    dead."""
     i32 = torch.int32
     e = 1 << 22
     edges = torch.arange(e, device=dev, dtype=i32)
@@ -6958,14 +6965,23 @@ def probe_segment_cases(dev):
         lens = torch.where(kk % 5 == 4, 0, deg).to(i32)
         cases.append((f"probe3_dma deg={deg}", pool, kk * deg, kk * pad,
                       pad, n * pad, lens, 8))
-    for length, n, f in ((4, 1001, 8), (4096, 333, 8), (64, 999, 1),
-                         (64, 1000, 2), (36, 1003, 3), (128, 5001, 31),
-                         (128, 5003, 32)):
+    # both of segment_path's designs: warps up to 1024 words (4 KB),
+    # bulk copies past it
+    for length, n, f, dead in (
+            (4, 1001, 8, False), (4096, 333, 8, False), (64, 999, 1, False),
+            (64, 1000, 2, True), (36, 1003, 3, False), (128, 5001, 31, True),
+            (128, 5003, 32, False), (1020, 777, 1, True),
+            (1024, 778, 2, False), (1024, 501, 31, True),
+            (1028, 503, 3, True), (1028, 333, 32, False),
+            (2048, 257, 1, True)):
         starts = torch.randint(0, (len(pool) - length) // 4, (n,),
                                generator=gen, device=dev, dtype=i32) * 4
-        cases.append((f"L={length} n={n} inflight={f}", pool, starts,
+        lens = torch.where(torch.arange(n, device=dev) % 5 == 4, 0,
+                           length).to(i32) if dead else None
+        cases.append((f"L={length} n={n} inflight={f}"
+                      f"{' dead' if dead else ''}", pool, starts,
                       torch.randperm(n, generator=gen, device=dev).to(i32)
-                      * length, length, n * length, None, f))
+                      * length, length, n * length, lens, f))
     return cases
 
 
@@ -6986,8 +7002,19 @@ def phase_probe_cases(PR, dev) -> int:
         check(torch.equal(PR.stream_copy(x), PR.stream_copy_reference(x)),
               f"phase 21: stream_copy differs at {shape}")
         n += 1
-    for t_rows, width in ((8, 128), (448, 128), (449, 128), (4096, 128),
-                          (3, 4), (100, 12)):
+    gather_paths = set()
+    # each side of gather_path's edges at width 128: per-lookup to 384
+    # rows (192 KB), stripes of 16 to 3631, of 8 to 7263, the pair to
+    # 14526, then per-lookup; widths of 1 and 3 stripes (no lockstep
+    # cluster) and off 8
+    for t_rows, width in ((8, 128), (384, 128), (385, 128), (448, 128),
+                          (3631, 128), (3632, 128), (4096, 128),
+                          (7263, 128), (7264, 128), (8192, 128),
+                          (14526, 128), (14527, 128), (16384, 128),
+                          (3500, 16), (2500, 24), (7000, 8), (9000, 8),
+                          (9000, 24), (3, 4), (100, 12), (2000, 12),
+                          (5000, 4)):
+        gather_paths.add(PR.gather_path(t_rows, width))
         tab = ri(0, 2**20, (t_rows, width))
         for rows in (1, 3, 1001, (1 << 18) + 5):
             idx = ri(0, t_rows, (rows, width))
@@ -6996,8 +7023,12 @@ def phase_probe_cases(PR, dev) -> int:
                                   PR.table_gather_reference(tab, idx,
                                                             shift)),
                       f"phase 21: table_gather differs at T={t_rows}, "
-                      f"W={width}, rows={rows}, bits={shift is not None}")
+                      f"W={width}, rows={rows}, bits={shift is not None} "
+                      f"(path {PR.gather_path(t_rows, width)})")
                 n += 1
+    check(gather_paths == {(0, 1), (16, 1), (8, 1), (8, 2)},
+          f"phase 21: the gather cases took the designs {gather_paths}, "
+          f"not the per-lookup one, both slabs and the pair")
     for rows in (1, 7, 1001, 65537):
         v, idx = ri(-2**31, 2**31 - 1, (rows, 128)), ri(0, 128, (rows, 128))
         check(torch.equal(PR.row_shuffle(v, idx),
@@ -7034,8 +7065,10 @@ def phase_probe_cases(PR, dev) -> int:
                           PR.tile_transpose_reference(v)),
               f"phase 21: tile_transpose differs at {rows} rows")
         n += 1
+    seg_paths = set()
     for name, src, starts, outpos, length, out_len, lens, f in \
             probe_segment_cases(dev):
+        seg_paths.add(PR.segment_path(length))
         got = PR.segment_copy(src, starts, outpos, length, out_len, lens, f)
         want = PR.segment_copy_reference(src, starts, outpos, length,
                                          out_len, lens, f)
@@ -7043,8 +7076,11 @@ def phase_probe_cases(PR, dev) -> int:
         at = (live.long()[:, None]
               + torch.arange(length, device=dev)).reshape(-1)
         check(torch.equal(got[at], want[at]),
-              f"phase 21: segment_copy differs in {name}")
+              f"phase 21: segment_copy differs in {name} (path "
+              f"{PR.segment_path(length)})")
         n += 1
+    check(seg_paths == {0, 1}, f"phase 21: the segment cases took the "
+          f"designs {seg_paths}, not the bulk copies and the warps")
     torch.cuda.synchronize()
     return n
 
@@ -7057,7 +7093,9 @@ def say_probe(r: dict, card: str) -> None:
         f"alone)")
     lib = "none" if r["library_ms"] is None else \
         f"{r['library']} {r['library_ms']:.4f} ms"
-    say(f"phase 21: {r['probe']} [{r['kernel']}, {r['where']}] on {card}: "
+    path = "" if r["path"] is None else f", path {r['path']}"
+    say(f"phase 21: {r['probe']} [{r['kernel']}, {r['where']}{path}] on "
+        f"{card}: "
         f"{r['ms']:.4f} ms (median {r['median_ms']:.4f}), "
         f"{r['g_elem_s']:.2f} G elem/s, {r['gb_s']:.1f} GB/s; bound "
         f"{r['bound_ms']:.4f} ms ({100 * r['share']:.1f}%){sector}; plain "

@@ -94,10 +94,12 @@ def _whole(rows):
 
 # ------------------------------------------------------------------ gather
 
-@pytest.mark.parametrize("t_rows", [8, 64, 448])
+@pytest.mark.parametrize("t_rows", [8, 64, 448, 2048, 8192, 16384])
 def test_gather_kernel_matches_jax(pg, bench, t_rows):
     """gather_kernel of probe_pallas_gather and of pallas_gather_bench
-    (the same body) against table_gather on the CPU."""
+    (the same body) against table_gather on the CPU, at a table of each
+    of gather_path's designs at width 128 (per-lookup: 8, 64, 16384;
+    stripes of 16: 448, 2048; the pair: 8192)."""
     rng = np.random.default_rng(t_rows)
     tab = rng.integers(0, 1 << 20, (t_rows, 128), dtype=I32)
     idx = rng.integers(0, t_rows, (64, 128), dtype=I32)
@@ -316,6 +318,66 @@ def test_scatter_path_by_shape(t_rows, width, stripe):
         assert 4 * stripe * (t_rows + 1) <= PR.SHARED_BYTES
 
 
+@pytest.mark.parametrize("t_rows,width,path", [
+    (8, 128, (0, 1)), (384, 128, (0, 1)),     # at most 192 KB: L1
+    (385, 128, (16, 1)), (2048, 128, (16, 1)),
+    (3631, 128, (16, 1)),                     # 16 x 3632 words: the limit
+    (3632, 128, (8, 1)), (4096, 128, (8, 1)),
+    (7263, 128, (8, 1)),                      # 8 x 7264 words: the limit
+    (7264, 128, (8, 2)), (8192, 128, (8, 2)),
+    (14526, 128, (8, 2)),                     # 8 x 7264 words a block
+    (14527, 128, (0, 1)), (16384, 128, (0, 1)), (2**19, 128, (0, 1)),
+    (3500, 16, (16, 1)), (2500, 24, (8, 1)), (9000, 24, (8, 2)),
+    (3072, 16, (0, 1)),                       # 192 KB exactly
+    (2000, 12, (0, 1)), (100000, 4, (0, 1))])  # widths off 8
+def test_gather_path_by_shape(t_rows, width, path):
+    """The gather's design is a pure function of the table's shape: the
+    per-lookup kernel for tables of at most LOOKUP_TABLE_BYTES, the
+    widest stripe that divides the width and whose slab fits a block's
+    shared memory, the pair of blocks for a stripe of 8, else the
+    per-lookup kernel; each chosen slab fits."""
+    assert PR.gather_path(t_rows, width) == path
+    stripe, holders = path
+    held = -(-t_rows // holders)
+    if stripe:
+        assert width % stripe == 0 and 4 * t_rows * width > \
+            PR.LOOKUP_TABLE_BYTES
+        assert 4 * stripe * (held + 1) <= PR.SHARED_BYTES
+        if holders == 2:    # a block alone could not hold the stripe
+            assert 4 * stripe * (t_rows + 1) > PR.SHARED_BYTES
+    else:
+        assert 4 * t_rows * width <= PR.LOOKUP_TABLE_BYTES or width % 8 \
+            or 4 * 8 * ((t_rows + 1) // 2 + 1) > PR.SHARED_BYTES
+
+
+@pytest.mark.parametrize("t_rows,width", [(385, 128), (3632, 24),
+                                          (9000, 8), (20, 12)])
+def test_gather_plain_on_every_path_shape(t_rows, width):
+    """The plain version, with and without shifts, against numpy at a
+    shape of each design."""
+    rng = np.random.default_rng(t_rows + width)
+    tab = rng.integers(0, 1 << 20, (t_rows, width), dtype=I32)
+    idx = rng.integers(0, t_rows, (37, width), dtype=I32)
+    shift = rng.integers(0, 32, (37, width), dtype=I32)
+    want = np.take_along_axis(tab, idx, 0)
+    np.testing.assert_array_equal(
+        PR.table_gather(_t(tab), _t(idx)).numpy(), want)
+    np.testing.assert_array_equal(
+        PR.table_gather(_t(tab), _t(idx), _t(shift)).numpy(),
+        (want >> shift) & 1)
+
+
+@pytest.mark.parametrize("length,path", [
+    (4, 1), (128, 1), (512, 1),
+    (1024, 1),                  # 4 KB: the longest warp copy
+    (1028, 0), (4096, 0), (2**18 - 4, 0)])
+def test_segment_path_by_length(length, path):
+    """The segment copy's design is a pure function of the length:
+    warps up to WARP_COPY_BYTES, bulk copies past it."""
+    assert PR.segment_path(length) == path
+    assert (4 * length <= PR.WARP_COPY_BYTES) == (path == 1)
+
+
 @pytest.mark.parametrize("t_rows,width", [(7, 128), (14528, 12), (20, 4)])
 def test_scatter_plain_on_every_path_shape(t_rows, width):
     """The plain version at shapes of each design, against numpy."""
@@ -375,11 +437,14 @@ def test_probe3_dma_kernel_matches_jax(p3, deg):
                         if ln > 0]))
 
 
-@pytest.mark.parametrize("nseg,rows,inflight", [(64, 4, 8), (128, 1, 16)])
+@pytest.mark.parametrize("nseg,rows,inflight", [(64, 4, 8), (128, 1, 16),
+                                                (64, 8, 2), (16, 32, 8)])
 def test_probe3d_seg_copy_checksum(p3d, nseg, rows, inflight):
     """probe3d_rate.seg_copy under the interpreter (its own module pool of
     2^17 rows) returns the checksum ``out[::64, 0].sum()`` of the row
-    segments; segment_copy of the same rows gives it."""
+    segments; segment_copy of the same rows gives it, at segments of
+    each of segment_path's designs (warps: 1-8 rows, 512 B-4 KB; bulk
+    copies: 32 rows, 16 KB)."""
     rng = np.random.default_rng(nseg + rows)
     starts = rng.integers(0, p3d.R - rows, (nseg,), dtype=I32)
     with pltpu.force_tpu_interpret_mode():

@@ -16,9 +16,12 @@
 // time L2, not HBM; the streams (idx, values, outputs: 256 MB-1 GiB) and
 // a 256 MB table time HBM. Nothing here flushes L2.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -28,6 +31,10 @@ constexpr int kMaxInflight = 32;
 // segment_copy: a bulk copy's bytes are counted by its mbarrier's
 // transaction count, which holds less than 2^20
 constexpr int64_t kMaxCopyBytes = int64_t(1) << 20;
+// table_gather's and table_scatter's slab designs: threads a block, and
+// rows' loads in flight a thread
+constexpr int kSlabThreads = 1024;
+constexpr int kSlabUnroll = 4;
 // row_shuffle: a row is one warp's 32 lanes of 4 elements
 constexpr int kRowWidth = 128;
 // tile_transpose: a tile of kTile x kTile moved in kSub x kSub pieces
@@ -36,8 +43,8 @@ constexpr int kSub = 32;
 constexpr int kPieces = (kTile / kSub) * (kTile / kSub);
 
 // The blocks of `kernel` that fit on the current device at once with
-// `smem` bytes of dynamic shared memory (the attribute raised past 48 KB
-// first), at most `need`.
+// `smem` bytes of dynamic shared memory (the attribute set to it first),
+// at most `need`.
 template <class K>
 cudaError_t grid_for(K kernel, int threads, size_t smem, int64_t need,
                      unsigned* grid) {
@@ -45,7 +52,7 @@ cudaError_t grid_for(K kernel, int threads, size_t smem, int64_t need,
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && smem > 48 * 1024)
+  if (e == cudaSuccess && smem > 0)
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(smem));
@@ -114,59 +121,319 @@ __global__ void __launch_bounds__(kCopyThreads)
 // serves a second. This probe measures that rate for lookups spread
 // uniformly over the table: a lower bound on the card's rate, which
 // reads with any locality beat.
-// Design: one thread for each 4 output elements (a row of W % 4 == 0
-// words, so the 4 share a row and take columns j..j+3): idx (and shift)
-// loaded and out stored as int4 with the streaming hints, so the 1 GiB
-// streams do not push the table out of L2; 4 independent table loads a
-// thread, read through the read-only path (__ldg). The probes' 1-8 MB
-// tables are read from L2, which holds them. Tried and dropped
-// (scripts/torch_gather_variants.py, which keeps both): staging a table
-// of at most 448 rows in shared memory was within 1% at the 8-row tile
-// and 25% slower at 448 rows (bank conflicts, one block an SM); up to 32
-// lookups in flight a thread, in place of 4, moved neither the 8 MB nor
-// the 256 MB table.
+// Design: three, picked by shape (ops/probes.gather_path). The
+// per-lookup kernel below: one thread for each 4 output elements (a row
+// of W % 4 == 0 words, so the 4 share a row and take columns j..j+3),
+// one int4 of idx a thread over as many blocks as the array needs (the
+// original loop over a grid of the resident blocks was 1-6% slower;
+// scripts/torch_gather_segment_variants.py keeps it): idx (and shift)
+// loaded and out stored as
+// int4 with the streaming hints, so the 1 GiB streams do not push the
+// table out of L2; 4 independent table loads a thread, read through the
+// read-only path (__ldg). Then the slab and the pair, below it. Tried
+// and dropped for the per-lookup kernel (scripts/torch_gather_variants.py
+// keeps both): staging a table of at most 448 rows in shared memory by
+// one block an SM was within 1% at the 8-row tile and 25% slower at 448
+// rows; up to 32 lookups in flight a thread, in place of 4, moved
+// neither the 8 MB nor the 256 MB table.
+constexpr int kGatherThreads = 1024;
+
+// The bit epilogue: int32 >> is arithmetic here as in torch and JAX; the
+// probes' words lie in [0, 2^20) and their shifts in [0, 32).
+__device__ __forceinline__ int4 bits_of(int4 v, int4 s) {
+  return make_int4((v.x >> s.x) & 1, (v.y >> s.y) & 1, (v.z >> s.z) & 1,
+                   (v.w >> s.w) & 1);
+}
+
 template <bool kBits>
-__global__ void table_gather_kernel(const int32_t* __restrict__ tab,
-                                    const int32_t* __restrict__ idx,
-                                    const int32_t* __restrict__ shift,
-                                    int32_t* __restrict__ out, int width,
-                                    int64_t n4) {
-  const int w4 = width / 4;
-  const int4* i4 = reinterpret_cast<const int4*>(idx);
-  const int4* s4 = reinterpret_cast<const int4*>(shift);
-  int4* o4 = reinterpret_cast<int4*>(out);
-  for (int64_t q = thread_id(); q < n4; q += thread_count()) {
-    const int4 k = __ldcs(i4 + q);
-    const int64_t j = (q % w4) * 4;
-    int4 v;
-    v.x = __ldg(tab + int64_t(k.x) * width + j);
-    v.y = __ldg(tab + int64_t(k.y) * width + j + 1);
-    v.z = __ldg(tab + int64_t(k.z) * width + j + 2);
-    v.w = __ldg(tab + int64_t(k.w) * width + j + 3);
-    if (kBits) {
-      // int32 >> is arithmetic here as in torch and JAX; the probes'
-      // words lie in [0, 2^20) and their shifts in [0, 32)
-      const int4 s = __ldcs(s4 + q);
-      v.x = (v.x >> s.x) & 1;
-      v.y = (v.y >> s.y) & 1;
-      v.z = (v.z >> s.z) & 1;
-      v.w = (v.w >> s.w) & 1;
-    }
-    __stcs(o4 + q, v);
-  }
+__global__ void __launch_bounds__(kGatherThreads)
+    table_gather_kernel(const int32_t* __restrict__ tab,
+                        const int32_t* __restrict__ idx,
+                        const int32_t* __restrict__ shift,
+                        int32_t* __restrict__ out, int width, int64_t n4) {
+  const int64_t q = thread_id();
+  if (q >= n4) return;
+  const int4 k = __ldcs(reinterpret_cast<const int4*>(idx) + q);
+  const int64_t j = (q % (width / 4)) * 4;
+  int4 v;
+  v.x = __ldg(tab + int64_t(k.x) * width + j);
+  v.y = __ldg(tab + int64_t(k.y) * width + j + 1);
+  v.z = __ldg(tab + int64_t(k.z) * width + j + 2);
+  v.w = __ldg(tab + int64_t(k.w) * width + j + 3);
+  if (kBits) v = bits_of(v, __ldcs(reinterpret_cast<const int4*>(shift) + q));
+  __stcs(reinterpret_cast<int4*>(out) + q, v);
 }
 
 template <bool kBits>
 cudaError_t launch_gather(const int32_t* tab, const int32_t* idx,
                           const int32_t* shift, int32_t* out, int width,
                           int64_t n4, cudaStream_t st) {
-  auto* kernel = table_gather_kernel<kBits>;
-  unsigned grid;
-  const cudaError_t e = grid_for(kernel, kThreads, 0,
-                                 (n4 + kThreads - 1) / kThreads, &grid);
-  if (e != cudaSuccess) return e;
-  kernel<<<grid, kThreads, 0, st>>>(tab, idx, shift, out, width, n4);
+  const int64_t grid = (n4 + kGatherThreads - 1) / kGatherThreads;
+  if (grid > 0x7fffffff) return cudaErrorInvalidValue;
+  table_gather_kernel<kBits><<<unsigned(grid), kGatherThreads, 0, st>>>(
+      tab, idx, shift, out, width, n4);
   return cudaGetLastError();
+}
+
+// The slab designs, for tables in L2: a lookup from L2 costs a 32-byte
+// sector for its 4 bytes, so the per-lookup kernel is bound by L2's
+// sector rate (2^28 lookups, 8.6 GB of sectors, about 4 TB/s), as
+// torch.gather is. Column j reads only column j of the table, so block b
+// takes stripe b % S of C columns and holds the stripe of every table
+// row in shared memory, column by column with a stride of T + 1 (a warp's
+// 32 random lookups in a column meet a few-way bank conflict); it then
+// streams its range of idx rows: C / 4 int4s of idx (and of shift) a row,
+// kSlabUnroll rows' loads in flight a thread, each word looked up in the
+// slab, out stored as int4s. A row's stripe is C * 4 bytes of a 512 B
+// row of idx and of out, so the S blocks of a range share every 128 B
+// line of both streams. idx is read with ld.global.L2::128B (L2 fetches
+// the whole line on a miss, for the neighbouring stripes' blocks), and
+// `lock` neighbouring stripes' blocks (8 where S allows) run as one
+// cluster that passes a cluster barrier every kSlabThreads * kSlabUnroll
+// units (split arrive and wait: a block runs at most one step ahead), so
+// a line is read from HBM once and an out line is completed while it is
+// still in L2. Unlocked, the blocks drift apart over the 1 GiB streams
+// and the lines are fetched and written back in pieces.
+// The pair design, for a stripe of 8 too tall for one block (T up to
+// 14526): the two blocks of a cluster each hold half of the stripe's rows
+// and each streams its own idx rows, reading the other's half through
+// distributed shared memory (one lookup in two crosses to the other SM).
+// ops/probes.gather_path picks the design by shape: the per-lookup kernel
+// for tables of at most 192 KB (served from L1: 88-91% of the bound, the
+// slab 85%), the widest slab that fits, the pair, and the per-lookup
+// kernel again for taller tables (T = 16384: a stripe of 8 needs four
+// blocks' shared memory).
+// Measured (scripts/torch_gather_segment_variants.py keeps every design
+// tried; H100 80GB HBM3, 700 W), idx (2^21, 128) from T = 2048 and the
+// 2 MB table's (524288, 128): locked, plain stores, 85-86% and 72% of
+// the bound; locked with __stcs 1-3% slower; unlocked 54-63% (__ldcs)
+// and 56-79% (L2::128B). Tried and dropped: stripes of 4 (half a sector
+// of each stream a row: 12-15% of the bound unlocked, 31-36% locked, no
+// faster than the pair at T = 8192); the rows of a tall table split
+// over 2-5 blocks a stripe, each writing the words whose index falls in
+// its rows (5-16%, locked or not: partial-sector writes); a cluster of
+// 4 a stripe (three lookups in four remote: 13%); idx by L2::256B.
+__device__ __forceinline__ int4 load_line(const int4* p) {
+  int4 v;
+  asm volatile("ld.global.L2::128B.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Rows [t0, t0 + span) of stripe `stripe`'s C columns into the slab.
+template <int C>
+__device__ __forceinline__ void load_slab(int32_t* slab, int ld,
+                                          const int32_t* tab, int width,
+                                          int stripe, int t0, int span) {
+  constexpr int Q = C / 4;
+  const int4* t4 = reinterpret_cast<const int4*>(tab);
+  for (int i = threadIdx.x; i < span * Q; i += blockDim.x) {
+    const int r = i / Q, q = i % Q;
+    const int4 v = __ldg(t4 + int64_t(t0 + r) * (width / 4) + stripe * Q + q);
+    int32_t* cell = slab + q * 4 * ld + r;
+    cell[0] = v.x;
+    cell[ld] = v.y;
+    cell[2 * ld] = v.z;
+    cell[3 * ld] = v.w;
+  }
+}
+
+template <bool kBits, int C>
+__global__ void __launch_bounds__(kSlabThreads)
+    table_gather_slab_kernel(const int32_t* __restrict__ tab,
+                             const int32_t* __restrict__ idx,
+                             const int32_t* __restrict__ shift,
+                             int32_t* __restrict__ out, int width,
+                             int t_rows, int64_t rows, int lock, int ranges) {
+  extern __shared__ int4 slab4[];
+  int32_t* slab = reinterpret_cast<int32_t*>(slab4);
+  const int stripes = width / C;
+  const int stripe = int(blockIdx.x % stripes);
+  const int range = int(blockIdx.x / stripes);
+  const int ld = t_rows + 1;
+  constexpr int Q = C / 4;  // int4s of a stripe's row
+  const int w4 = width / 4;
+  load_slab<C>(slab, ld, tab, width, stripe, 0, t_rows);
+  __syncthreads();
+  const int64_t r0 = rows * range / ranges;
+  const int64_t units = (rows * (range + 1) / ranges - r0) * Q;
+  const int64_t step = int64_t(blockDim.x) * kSlabUnroll;
+  // the same count in every block of a cluster: they share the range
+  const int64_t steps = (units + step - 1) / step;
+  const int4* i4 = reinterpret_cast<const int4*>(idx);
+  const int4* s4 = reinterpret_cast<const int4*>(shift);
+  int4* o4 = reinterpret_cast<int4*>(out);
+  for (int64_t it = 0; it < steps; ++it) {
+    if (lock > 1 && it > 0) cluster_wait();
+    const int64_t u0 = it * step + threadIdx.x;
+    int4 k[kSlabUnroll], s[kSlabUnroll];
+    int64_t at[kSlabUnroll];
+#pragma unroll
+    for (int j = 0; j < kSlabUnroll; ++j) {
+      const int64_t u = u0 + int64_t(j) * blockDim.x;
+      at[j] = (r0 + u / Q) * w4 + stripe * Q + u % Q;
+      k[j] = s[j] = make_int4(0, 0, 0, 0);
+      if (u < units) {
+        k[j] = load_line(i4 + at[j]);
+        if (kBits) s[j] = load_line(s4 + at[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kSlabUnroll; ++j) {
+      if (u0 + int64_t(j) * blockDim.x >= units) continue;
+      const int32_t* col = slab + int((u0 + int64_t(j) * blockDim.x) % Q) *
+                                      4 * ld;
+      int4 v = make_int4(col[k[j].x], col[ld + k[j].y], col[2 * ld + k[j].z],
+                         col[3 * ld + k[j].w]);
+      if (kBits) v = bits_of(v, s[j]);
+      o4[at[j]] = v;
+    }
+    if (lock > 1) cluster_arrive();
+  }
+  if (lock > 1 && steps > 0) cluster_wait();
+}
+
+template <bool kBits>
+__global__ void __launch_bounds__(kSlabThreads)
+    table_gather_pair_kernel(const int32_t* __restrict__ tab,
+                             const int32_t* __restrict__ idx,
+                             const int32_t* __restrict__ shift,
+                             int32_t* __restrict__ out, int width,
+                             int t_rows, int64_t rows, int ranges) {
+  constexpr int C = 8, Q = 2;
+  extern __shared__ int4 slab4[];
+  int32_t* slab = reinterpret_cast<int32_t*>(slab4);
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = int(cl.block_rank());
+  const int pair = int(blockIdx.x / 2);
+  const int stripes = width / C;
+  const int stripe = pair % stripes, range = pair / stripes;
+  const int span = (t_rows + 1) / 2, ld = span + 1;
+  load_slab<C>(slab, ld, tab, width, stripe, rank * span,
+               rank ? t_rows - span : span);
+  cl.sync();
+  const int32_t* halves[2] = {cl.map_shared_rank(slab, 0u),
+                              cl.map_shared_rank(slab, 1u)};
+  // the pair's range of idx rows, split between its two blocks
+  const int64_t sub = int64_t(range) * 2 + rank, subs = int64_t(ranges) * 2;
+  const int64_t r0 = rows * sub / subs;
+  const int64_t units = (rows * (sub + 1) / subs - r0) * Q;
+  const int w4 = width / 4;
+  const int4* i4 = reinterpret_cast<const int4*>(idx);
+  const int4* s4 = reinterpret_cast<const int4*>(shift);
+  int4* o4 = reinterpret_cast<int4*>(out);
+  for (int64_t u0 = threadIdx.x; u0 < units;
+       u0 += int64_t(blockDim.x) * kSlabUnroll) {
+    int4 k[kSlabUnroll], s[kSlabUnroll];
+    int64_t at[kSlabUnroll];
+#pragma unroll
+    for (int j = 0; j < kSlabUnroll; ++j) {
+      const int64_t u = u0 + int64_t(j) * blockDim.x;
+      at[j] = (r0 + u / Q) * w4 + stripe * Q + u % Q;
+      k[j] = s[j] = make_int4(0, 0, 0, 0);
+      if (u < units) {
+        k[j] = load_line(i4 + at[j]);
+        if (kBits) s[j] = load_line(s4 + at[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kSlabUnroll; ++j) {
+      const int64_t u = u0 + int64_t(j) * blockDim.x;
+      if (u >= units) continue;
+      const int c0 = int(u % Q) * 4 * ld;
+      const int kk[4] = {k[j].x, k[j].y, k[j].z, k[j].w};
+      int w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hi = kk[e] >= span;
+        w[e] = halves[hi][c0 + e * ld + kk[e] - hi * span];
+      }
+      int4 v = make_int4(w[0], w[1], w[2], w[3]);
+      if (kBits) v = bits_of(v, s[j]);
+      __stcs(o4 + at[j], v);
+    }
+  }
+  cl.sync();  // no block leaves while the other reads its half
+}
+
+// A launch of `per_range` blocks a row range, as many ranges as fit on
+// the card at once, in clusters of `cluster` consecutive blocks (1: no
+// cluster); the kernel's last arguments are (..., ranges, tail...).
+// The shared-memory attribute is set to `smem` at every launch: one
+// kernel is launched with other sizes, and a launch that asks for more
+// than the attribute last set is refused.
+template <class... P, class... A>
+cudaError_t launch_ranges(void (*kernel)(P...), int per_range, int cluster,
+                          size_t smem, cudaStream_t st, A... head) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  int dev, sms, fit = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3(unsigned(cluster));
+  cfg.blockDim = dim3(kSlabThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  if (cluster > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = unsigned(cluster);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    fit *= cluster;
+  } else {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel,
+                                                      kSlabThreads, smem);
+    fit *= sms;
+  }
+  if (e != cudaSuccess) return e;
+  if (fit < 1) return cudaErrorInvalidConfiguration;
+  const int ranges = fit / per_range > 1 ? fit / per_range : 1;
+  cfg.gridDim = dim3(unsigned(per_range * ranges));
+  e = cudaLaunchKernelEx(&cfg, kernel, head..., ranges);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <bool kBits>
+cudaError_t gather_path(const int32_t* tab, const int32_t* idx,
+                        const int32_t* shift, int32_t* out, int64_t t_rows,
+                        int width, int64_t n, int stripe, int holders,
+                        cudaStream_t st) {
+  const int64_t rows = n / width;
+  const int t = int(t_rows);
+  if (holders == 2)
+    return launch_ranges(table_gather_pair_kernel<kBits>, (width / 8) * 2, 2,
+                         size_t(8) * ((t + 1) / 2 + 1) * 4, st, tab, idx,
+                         shift, out, width, t, rows);
+  if (stripe == 0)
+    return launch_gather<kBits>(tab, idx, shift, out, width, n / 4, st);
+  // lock: the most stripes, up to 8 and a power of 2, that divide S
+  const int stripes = width / stripe;
+  int lock = 8;
+  while (stripes % lock) lock /= 2;
+  const size_t smem = size_t(stripe) * (t + 1) * 4;
+  if (stripe == 16)
+    return launch_ranges(table_gather_slab_kernel<kBits, 16>, stripes, lock,
+                         smem, st, tab, idx, shift, out, width, t, rows,
+                         lock);
+  return launch_ranges(table_gather_slab_kernel<kBits, 8>, stripes, lock,
+                       smem, st, tab, idx, shift, out, width, t, rows, lock);
 }
 
 // ------------------------------------------------------------ row_shuffle
@@ -237,9 +504,6 @@ __global__ void row_shuffle_kernel(const int32_t* __restrict__ v,
 // (no memset, no global atomic) was 20-40% slower at the probe's shape.
 // The original design stays for tables whose stripe of 4 columns does not
 // fit (scatter_path in ops/probes.py decides by shape).
-constexpr int kSlabThreads = 1024;
-constexpr int kSlabUnroll = 4;
-
 template <int kMode>
 __device__ __forceinline__ void put(int32_t* p, int32_t v) {
   if (kMode == 0)
@@ -540,6 +804,93 @@ __global__ void __launch_bounds__(32)
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// The warp design, for short segments: a bulk copy of 512 B is one
+// mbarrier round trip for 512 bytes, issued by one thread a block. Here
+// warp w takes segments [w * inflight, (w + 1) * inflight): lane s holds
+// segment s's start, outpos and liveness, and each step every lane loads
+// one int4 of each of the warp's live segments (the loads of all
+// `inflight` segments issued before their stores: `inflight` copies in
+// flight a warp), then stores them, with the streaming hints; a segment
+// of L words takes ceil(L / 128) steps. kWarpCopyThreads-thread blocks
+// over as many blocks as the segments need. G >= inflight is the
+// register buffer, a power of 2.
+constexpr int kWarpCopyThreads = 256;
+
+template <int G>
+__global__ void __launch_bounds__(kWarpCopyThreads)
+    segment_copy_warp_kernel(const int32_t* __restrict__ src,
+                             const int32_t* __restrict__ starts,
+                             const int32_t* __restrict__ lens,
+                             const int32_t* __restrict__ outpos,
+                             int32_t* __restrict__ out, int64_t nseg,
+                             int64_t length4, int inflight) {
+  const int lane = threadIdx.x % 32;
+  const int64_t base =
+      (int64_t(blockIdx.x) * (kWarpCopyThreads / 32) + threadIdx.x / 32) *
+      inflight;
+  if (base >= nseg) return;
+  // int4 offsets of lane's segment, -1 where it is dead or past the end
+  int from = -1, to = -1;
+  if (lane < inflight && base + lane < nseg &&
+      (lens == nullptr || __ldg(lens + base + lane) > 0)) {
+    from = __ldg(starts + base + lane) / 4;
+    to = __ldg(outpos + base + lane) / 4;
+  }
+  const int4* s4 = reinterpret_cast<const int4*>(src);
+  int4* o4 = reinterpret_cast<int4*>(out);
+  for (int64_t q0 = 0; q0 < length4; q0 += 32) {
+    const int64_t q = q0 + lane;
+    int4 v[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int a = __shfl_sync(0xffffffffu, from, g);
+      if (g < inflight && a >= 0 && q < length4) v[g] = __ldcs(s4 + a + q);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int a = __shfl_sync(0xffffffffu, to, g);
+      if (g < inflight && a >= 0 && q < length4) __stcs(o4 + a + q, v[g]);
+    }
+  }
+}
+
+template <int G>
+cudaError_t launch_segment_warp(const int32_t* src, const int32_t* starts,
+                                const int32_t* lens, const int32_t* outpos,
+                                int32_t* out, int64_t nseg, int64_t length,
+                                int inflight, cudaStream_t st) {
+  constexpr int kWarps = kWarpCopyThreads / 32;
+  const int64_t warps = (nseg + inflight - 1) / inflight;
+  const int64_t grid = (warps + kWarps - 1) / kWarps;
+  if (grid > 0x7fffffff) return cudaErrorInvalidValue;
+  segment_copy_warp_kernel<G><<<unsigned(grid), kWarpCopyThreads, 0, st>>>(
+      src, starts, lens, outpos, out, nseg, length / 4, inflight);
+  return cudaGetLastError();
+}
+
+cudaError_t segment_warp(const int32_t* src, const int32_t* starts,
+                         const int32_t* lens, const int32_t* outpos,
+                         int32_t* out, int64_t nseg, int64_t length,
+                         int inflight, cudaStream_t st) {
+  if (inflight <= 1)
+    return launch_segment_warp<1>(src, starts, lens, outpos, out, nseg,
+                                  length, inflight, st);
+  if (inflight <= 2)
+    return launch_segment_warp<2>(src, starts, lens, outpos, out, nseg,
+                                  length, inflight, st);
+  if (inflight <= 4)
+    return launch_segment_warp<4>(src, starts, lens, outpos, out, nseg,
+                                  length, inflight, st);
+  if (inflight <= 8)
+    return launch_segment_warp<8>(src, starts, lens, outpos, out, nseg,
+                                  length, inflight, st);
+  if (inflight <= 16)
+    return launch_segment_warp<16>(src, starts, lens, outpos, out, nseg,
+                                   length, inflight, st);
+  return launch_segment_warp<32>(src, starts, lens, outpos, out, nseg,
+                                 length, inflight, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -560,16 +911,26 @@ int tt_stream_copy(const int32_t* x, int32_t* out, int64_t n, void* stream) {
 
 // out [n / width, width] = tab [t_rows, width] gathered by idx [n / width,
 // width], each index in [0, t_rows); with shift (not null) the bit
-// epilogue. width % 4 == 0, n % width == 0, every pointer 16-byte aligned.
+// epilogue. (stripe, holders): (16 or 8, 1) the slab, C x (t_rows + 1)
+// words of shared memory a block; (8, 2) the pair, 8 x (ceil(t_rows / 2)
+// + 1) words; (0, 1) the per-lookup design. width % 4 == 0 (% stripe),
+// n % width == 0, every pointer 16-byte aligned.
 int tt_table_gather(const int32_t* tab, const int32_t* idx,
                     const int32_t* shift, int32_t* out, int64_t t_rows,
-                    int width, int64_t n, void* stream) {
-  if (t_rows < 1 || width < 4 || width % 4 != 0 || n < 0 || n % width != 0)
+                    int width, int64_t n, int stripe, int holders,
+                    void* stream) {
+  const bool slab = (stripe == 16 || stripe == 8) && holders == 1;
+  const bool pair = stripe == 8 && holders == 2 && t_rows >= 2;
+  if (t_rows < 1 || width < 4 || width % 4 != 0 || n < 0 || n % width != 0 ||
+      !(slab || pair || (stripe == 0 && holders == 1)) ||
+      (stripe && (width % stripe != 0 || t_rows > INT32_MAX)))
     return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return shift ? launch_gather<true>(tab, idx, shift, out, width, n / 4, st)
-               : launch_gather<false>(tab, idx, shift, out, width, n / 4, st);
+  return shift ? gather_path<true>(tab, idx, shift, out, t_rows, width, n,
+                                   stripe, holders, st)
+               : gather_path<false>(tab, idx, shift, out, t_rows, width, n,
+                                    stripe, holders, st);
 }
 
 // out [rows, 128] = each row of v [rows, 128] permuted by idx [rows, 128]
@@ -632,22 +993,27 @@ int tt_tile_transpose(const int32_t* v, int32_t* out, int64_t rows,
 // null (every segment live). The caller has checked every live segment's
 // ranges and that src, out, starts * 4, outpos * 4 and length * 4 are
 // multiples of 16 bytes; inflight * length * 4 bytes of stages must fit
-// in a block's shared memory.
+// in a block's shared memory. path 0: bulk copies; 1: warp copies.
 int tt_segment_copy(const int32_t* src, const int32_t* starts,
                     const int32_t* lens, const int32_t* outpos, int32_t* out,
-                    int64_t nseg, int64_t length, int inflight,
+                    int64_t nseg, int64_t length, int inflight, int path,
                     void* stream) {
   if (nseg < 0 || length < 4 || length % 4 != 0 || inflight < 1 ||
-      inflight > kMaxInflight || length * 4 >= kMaxCopyBytes)
+      inflight > kMaxInflight || length * 4 >= kMaxCopyBytes ||
+      (path != 0 && path != 1))
     return cudaErrorInvalidValue;
   if (nseg == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 1)
+    return segment_warp(src, starts, lens, outpos, out, nseg, length,
+                        inflight, st);
   const uint32_t bytes = uint32_t(length * 4);
   const size_t smem = size_t(inflight) * bytes;
   unsigned grid;
   const cudaError_t e = grid_for(segment_copy_kernel, 32, smem, nseg, &grid);
   if (e != cudaSuccess) return e;
-  segment_copy_kernel<<<grid, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      src, starts, lens, outpos, out, nseg, bytes, inflight);
+  segment_copy_kernel<<<grid, 32, smem, st>>>(src, starts, lens, outpos, out,
+                                              nseg, bytes, inflight);
   return cudaGetLastError();
 }
 

@@ -14,7 +14,10 @@ these give the card's own, beside the data sheet's 3.35 TB/s.
     ``out[i, j] = tab[idx[i, j], j]``; with ``shift``, the bit lookup
     ``(tab[idx[i, j], j] >> shift[i, j]) & 1`` (int32 ``>>`` is
     arithmetic on the card as in torch and JAX; the probes' words lie in
-    [0, 2^20) and their shifts in [0, 32)).
+    [0, 2^20) and their shifts in [0, 32)). The kernel's design follows
+    the shape (``gather_path``): a lookup a word for small, very tall
+    or narrow tables, else the table's column stripes held in shared
+    memory (by one block, or by a pair of blocks).
 ``row_shuffle(v, idx)``
     ``out[i, j] = v[i, idx[i, j]]``, rows of 128 words.
 ``table_scatter(idx, val, rows, mode)``
@@ -31,7 +34,9 @@ these give the card's own, beside the data sheet's 3.35 TB/s.
     ``out[outpos[k]:+length] = src[starts[k]:+length]`` for every k with
     ``lens[k] > 0`` (every k without ``lens``), int32 element offsets
     (rows of 128 words are ``starts * 128`` and ``length = rows * 128``);
-    the kernel keeps up to ``inflight`` bulk copies in flight a block.
+    ``inflight`` copies are kept in flight: a warp's segments for
+    segments of at most 4 KB, a block's bulk copies for longer ones
+    (``segment_path``).
 
 Every tensor is int32 and contiguous. A wrapper runs the plain version
 (``*_reference``) when its tensors lie on the CPU, and launches its kernel
@@ -75,6 +80,14 @@ MAX_COPY_BYTES = 2**20 - 16
 MAX_INFLIGHT = 32
 #: table_scatter's stripe widths, widest first
 STRIPES = (8, 4)
+#: table_gather's stripe widths, widest first
+GATHER_STRIPES = (16, 8)
+#: table_gather: the largest table, in bytes, that the per-lookup design
+#: keeps (a table this small is served from L1)
+LOOKUP_TABLE_BYTES = 192 * 1024
+#: segment_copy: the longest segment, in bytes, that the warp design
+#: copies; longer ones go by bulk copies
+WARP_COPY_BYTES = 4096
 SCATTER_MODES = ("set", "max", "add")
 _SCATTER_REDUCE = {"max": "amax", "add": "sum"}
 
@@ -265,11 +278,11 @@ def kernel_library() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     for name, args in (
             ("tt_stream_copy", [p, p, i64, p]),
-            ("tt_table_gather", [p, p, p, p, i64, i32, i64, p]),
+            ("tt_table_gather", [p, p, p, p, i64, i32, i64, i32, i32, p]),
             ("tt_row_shuffle", [p, p, p, i64, p]),
             ("tt_table_scatter", [p, p, p, i64, i32, i64, i32, i32, p]),
             ("tt_tile_transpose", [p, p, i64, p]),
-            ("tt_segment_copy", [p, p, p, p, p, i64, i64, i32, p])):
+            ("tt_segment_copy", [p, p, p, p, p, i64, i64, i32, i32, p])):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, i32
     return lib
@@ -339,13 +352,39 @@ def stream_copy(x):
         return _launch_stream_copy(x)
 
 
+def _slab_bytes(stripe: int, t_rows: int) -> int:
+    """A slab's shared memory: ``stripe`` columns of ``t_rows`` rows,
+    each column padded by one word."""
+    return 4 * stripe * (t_rows + 1)
+
+
+def gather_path(t_rows: int, width: int) -> tuple[int, int]:
+    """The gather's design, by shape alone, as ``(stripe, holders)``:
+    ``(0, 1)``, the per-lookup design, for a table of at most
+    ``LOOKUP_TABLE_BYTES`` (read from L1), a width off 8 and a table too
+    tall for the rest; ``(c, 1)``, the slab (the stripe's columns of
+    every table row in one block's shared memory), the widest ``c`` of
+    ``GATHER_STRIPES`` that divides the width and whose slab fits;
+    ``(8, 2)``, the pair (a stripe of 8 columns held half by each block
+    of a cluster of 2), where only that fits."""
+    if 4 * t_rows * width <= LOOKUP_TABLE_BYTES:
+        return 0, 1
+    for c in GATHER_STRIPES:
+        if width % c == 0 and _slab_bytes(c, t_rows) <= SHARED_BYTES:
+            return c, 1
+    if width % 8 == 0 and _slab_bytes(8, (t_rows + 1) // 2) <= SHARED_BYTES:
+        return 8, 2
+    return 0, 1
+
+
 def _launch_table_gather(tab, idx, shift=None):
     _check_aligned("table_gather", tab, idx, shift)
     out = torch.empty_like(idx)
+    stripe, holders = gather_path(tab.shape[0], tab.shape[1])
     _raise_on(kernel_library().tt_table_gather(
         tab.data_ptr(), idx.data_ptr(), _ptr(shift), out.data_ptr(),
-        tab.shape[0], tab.shape[1], idx.numel(), _stream(idx)),
-        "table_gather")
+        tab.shape[0], tab.shape[1], idx.numel(), stripe, holders,
+        _stream(idx)), "table_gather")
     table_gather.launches += 1
     return out
 
@@ -463,14 +502,22 @@ def tile_transpose(v):
         return _launch_tile_transpose(v)
 
 
+def segment_path(length: int) -> int:
+    """The segment copy's design, by the segment's length (int32 words)
+    alone: 1, warps copying int4s a lane, for segments of at most
+    ``WARP_COPY_BYTES``; 0, bulk copies through shared memory, for longer
+    ones."""
+    return 1 if 4 * length <= WARP_COPY_BYTES else 0
+
+
 def _launch_segment_copy(src, starts, outpos, length: int, out_len: int,
                          lens=None, inflight: int = 8):
     _check_aligned("segment_copy", src)
     out = torch.empty(out_len, dtype=torch.int32, device=src.device)
     _raise_on(kernel_library().tt_segment_copy(
         src.data_ptr(), starts.data_ptr(), _ptr(lens), outpos.data_ptr(),
-        out.data_ptr(), starts.numel(), length, inflight, _stream(src)),
-        "segment_copy")
+        out.data_ptr(), starts.numel(), length, inflight,
+        segment_path(length), _stream(src)), "segment_copy")
     segment_copy.launches += 1
     return out
 
@@ -565,38 +612,47 @@ def _time(fn, reps: int) -> tuple[float, float]:
 
 def _segment_inputs(p: dict, gen, dev):
     """A segment-copy probe's (src, starts, outpos, length, out_len, lens,
-    inflight, library): probe3_dma's pool with starts k * deg, each
-    segment ``pad`` words to k * pad; probe3d's pool of 128-word rows
+    inflight, library, lib_name): probe3_dma's pool with starts k * deg,
+    each segment ``pad`` words to k * pad; probe3d's pool of 128-word rows
     with random row starts, each segment ``seg_rows`` rows to
-    k * seg_rows rows (``library``: ``index_select`` of one-row
-    segments)."""
+    k * seg_rows rows. ``library`` is one PyTorch call whose output is
+    ``out``: the segments as rows of an ``as_strided`` view of the pool,
+    cloned (probe3_dma; it also copies dead segments, and every probe's
+    segment is live) or picked by ``index_select`` (probe3d)."""
     n = p["nseg"]
     if "pool" in p:
         src = torch.randint(0, 2**20, (p["pool"],), generator=gen,
                             device=dev, dtype=torch.int32)
         k = torch.arange(n, device=dev, dtype=torch.int32)
         lens = torch.full((n,), p["deg"], device=dev, dtype=torch.int32)
-        return (src, k * p["deg"], k * p["pad"], p["pad"], n * p["pad"],
-                lens, p["inflight"], None)
+        deg, pad = p["deg"], p["pad"]
+
+        def library():
+            return src.as_strided((n, pad), (deg, 1)).clone()
+        return (src, k * deg, k * pad, pad, n * pad, lens, p["inflight"],
+                library, f"src.as_strided(({n}, {pad}), ({deg}, 1)).clone()")
     rows = p["seg_rows"]
-    src2d = torch.arange(p["src_rows"] * WIDTH, device=dev,
-                         dtype=torch.int32).view(-1, WIDTH) % 1000
+    src = (torch.arange(p["src_rows"] * WIDTH, device=dev,
+                        dtype=torch.int32) % 1000)
     row_starts = torch.randint(0, p["src_rows"] - rows, (n,), generator=gen,
                                device=dev, dtype=torch.int32)
     k = torch.arange(n, device=dev, dtype=torch.int32)
-    library = None
-    if rows == 1:
-        def library():
-            return src2d.index_select(0, row_starts)
-    return (src2d.view(-1), row_starts * WIDTH, k * (rows * WIDTH),
-            rows * WIDTH, n * rows * WIDTH, None, p["inflight"], library)
+    windows = (p["src_rows"] - rows + 1, rows * WIDTH)
+
+    def library():
+        return src.as_strided(windows, (WIDTH, 1)).index_select(0,
+                                                                row_starts)
+    return (src, row_starts * WIDTH, k * (rows * WIDTH), rows * WIDTH,
+            n * rows * WIDTH, None, p["inflight"], library,
+            f"src.as_strided({windows}, (128, 1)).index_select(0, starts)")
 
 
 def _probe(kernel: str, p: dict, gen, dev) -> dict:
     """One probe's inputs as closures: ``wrapper`` (checked, launches
     once), ``kernel`` (the launch alone), ``plain``, ``library`` (or
-    None), its element count, byte model, sector model (or None) and
-    where its random accesses land."""
+    None), its element count, byte model, sector model (or None), where
+    its random accesses land and, for the kernels that pick a design by
+    shape, the design (``path``)."""
     ri = functools.partial(torch.randint, generator=gen, device=dev,
                            dtype=torch.int32)
     if kernel == "stream_copy":
@@ -620,6 +676,7 @@ def _probe(kernel: str, p: dict, gen, dev) -> dict:
                     library=None if bits
                     else lambda: torch.gather(tab, 0, idx),
                     n=n, bytes=gather_bytes(t, n, bits=bits),
+                    path=gather_path(t, WIDTH),
                     sectors=gather_sector_bytes(n, bits) if far else None,
                     where="HBM table" if far else "L2 table")
     if kernel == "row_shuffle":
@@ -651,6 +708,7 @@ def _probe(kernel: str, p: dict, gen, dev) -> dict:
                     plain=table_scatter_reference, lib_name=lib_name,
                     library=library, n=idx.numel(),
                     bytes=scatter_bytes(idx.numel(), t), sectors=None,
+                    path=scatter_path(t, WIDTH),
                     where="L2 table")
     if kernel == "tile_transpose":
         v = ri(0, 100, (p["rows"], WIDTH))
@@ -662,14 +720,13 @@ def _probe(kernel: str, p: dict, gen, dev) -> dict:
                         1, 2).contiguous(), n=v.numel(),
                     bytes=transpose_bytes(v.numel()), sectors=None,
                     where="HBM")
-    src, starts, outpos, length, out_len, lens, inflight, library = \
-        _segment_inputs(p, gen, dev)
+    src, starts, outpos, length, out_len, lens, inflight, library, \
+        lib_name = _segment_inputs(p, gen, dev)
     n = starts.numel()
     return dict(args=(src, starts, outpos, length, out_len, lens, inflight),
                 launch=_launch_segment_copy, plain=segment_copy_reference,
-                lib_name=None if library is None
-                else "src2d.index_select(0, starts)",
-                library=library, n=n * length,
+                lib_name=lib_name, library=library, n=n * length,
+                path=segment_path(length),
                 bytes=segment_bytes(starts, outpos, length, lens),
                 sectors=None, where="HBM")
 
@@ -710,7 +767,9 @@ def run_probes(device=None, reps: int = 5, seed: int = 0) -> list[dict]:
     the byte model, the bound (``bound_ms``) and its share, the sector
     model's bound and share for a table beyond L2 (and the rate of the
     lookups' sectors alone), where the random accesses land, the plain
-    version's and the library call's ms."""
+    version's and the library call's ms, and the design the wrapper
+    took (``gather_path``, ``scatter_path``, ``segment_path``; None for
+    the kernels with one)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("run_probes times the kernels on a card; a CPU run "
@@ -742,7 +801,7 @@ def run_probes(device=None, reps: int = 5, seed: int = 0) -> list[dict]:
                    "sector_bytes": pr["sectors"], "sector_bound_ms": None,
                    "sector_share": None, "max_abs_err": err,
                    "plain_ms": plain_ms, "library": pr["lib_name"],
-                   "library_ms": lib_ms}
+                   "library_ms": lib_ms, "path": pr.get("path")}
             if pr["sectors"] is not None:
                 rec["sector_bound_ms"] = bound_ms(pr["sectors"])
                 rec["sector_share"] = rec["sector_bound_ms"] / ms

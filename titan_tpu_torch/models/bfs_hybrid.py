@@ -893,6 +893,14 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
     dist gathered on the mesh's first device, and the result is
     gathered there.
 
+    Stages (``obs/devprof`` seams on ``device``'s stream): each plan,
+    re-plans included, with its stats readback is
+    ``bfs_batched.plan``; each level from the words' share through the
+    rounds, the progress readback and the stragglers' sweep is
+    ``bfs_batched.sweep`` (``frontier_round`` and ``batched_exhaust``
+    inside it); the final ``[K, n]`` copy to the host is
+    ``bfs_batched.readback`` (none with ``return_device``).
+
     Returns ``(dist, levels, completed)``: dist [K, n] int32 (a device
     tensor when ``return_device``, else numpy; INF = unreachable, partial
     for jobs not completed), levels np int32 [K] (the level at which each
@@ -956,10 +964,11 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
     words = _Words(blocks, K, n)
 
     def plan_all():
-        for b in blocks:
-            b.plan = _batched_plan(b.dist, b.active, level, b.g["degc"],
-                                   b.cap, b.w, expand)
-        sts = _readback([b.plan[2] for b in blocks])
+        with devprof.seam("bfs_batched.plan", dev):
+            for b in blocks:
+                b.plan = _batched_plan(b.dist, b.active, level, b.g["degc"],
+                                       b.cap, b.w, expand)
+            sts = _readback([b.plan[2] for b in blocks])
         return [st[0] for st in sts], \
             np.sum([st[1:] for st in sts], axis=0, dtype=np.int32)
 
@@ -1000,50 +1009,55 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
             for b in blocks:
                 b.active = torch.from_numpy(act_h).to(b.dev)
             c_counts, nf = plan_all()
-        fbits = words.share()
-        # hops mode: the jobs with a frontier this level, from the plan's
-        # per-job counts (column w of a block is never == level): on the
-        # device for one block, summed on the host over several
-        live = None
-        if expand:
-            live = (blocks[0].plan[2][1:] > 0)[:, None] if one \
-                else torch.from_numpy(nf > 0)[:, None]
-        # a level's label mask rides the tbits seam of the tombstones
-        tb_l = tbits
-        if level_masks is not None:
-            i_lm = level - start_level
-            lm = level_masks[i_lm] if 0 <= i_lm < len(level_masks) else None
-            if lm is not None:
-                tb_l = [lm] if one else [b.slots(lm) for b in blocks]
-        progs = []
-        for i, (b, c_count) in enumerate(zip(blocks, c_counts)):
-            fb = fbits[b.dev]
-            if adds is not None:
-                # overlay adds expand top-down off the level's final words,
-                # independent of the base sweep below (both stamp level+1
-                # by the same reduction, so the order does not matter); it
-                # runs even when the base candidate list is empty
-                _overlay_scatter_batched(b.dist, fb, adds[i][0], adds[i][1],
-                                         level, b.w, expand)
-            if c_count > 0:
-                # BU_CHUNK_ROUNDS chunk rounds over the block's candidates
-                c_cap2 = min(next_pow2(max(c_count, 2)), b.cap)
-                off = torch.zeros(c_cap2, dtype=torch.int32, device=b.dev)
-                cand, off, prog = _batched_rounds(
-                    b.dist, fb, b.plan[1][:c_cap2], off, c_count, level,
-                    b.g, None if tb_l is None else tb_l[i], BU_CHUNK_ROUNDS,
-                    expand, None if live is None else live.to(b.dev))
-                progs.append((i, cand, off, prog))
-        done = _readback([p[3] for p in progs])   # ONE a block a fuse
-        for (i, cand, off, _), (c_count, rem8) in zip(progs, done):
-            if c_count > 0:
-                # the stragglers' remaining chunks, all in one sweep
-                b = blocks[i]
-                c_cap2 = min(next_pow2(max(c_count, 2)), b.cap)
-                _batched_exhaust(b.dist, fbits[b.dev], cand[:c_cap2],
-                                 off[:c_cap2], c_count, level, b.g,
-                                 None if tb_l is None else tb_l[i],
-                                 next_pow2(max(rem8, 2)), expand)
+        with devprof.seam("bfs_batched.sweep", dev):
+            fbits = words.share()
+            # hops mode: the jobs with a frontier this level, from the
+            # plan's per-job counts (column w of a block is never ==
+            # level): on the device for one block, summed on the host
+            # over several
+            live = None
+            if expand:
+                live = (blocks[0].plan[2][1:] > 0)[:, None] if one \
+                    else torch.from_numpy(nf > 0)[:, None]
+            # a level's label mask rides the tbits seam of the tombstones
+            tb_l = tbits
+            if level_masks is not None:
+                i_lm = level - start_level
+                lm = level_masks[i_lm] \
+                    if 0 <= i_lm < len(level_masks) else None
+                if lm is not None:
+                    tb_l = [lm] if one else [b.slots(lm) for b in blocks]
+            progs = []
+            for i, (b, c_count) in enumerate(zip(blocks, c_counts)):
+                fb = fbits[b.dev]
+                if adds is not None:
+                    # overlay adds expand top-down off the level's final
+                    # words, independent of the base sweep below (both
+                    # stamp level+1 by the same reduction, so the order
+                    # does not matter); it runs even when the base
+                    # candidate list is empty
+                    _overlay_scatter_batched(b.dist, fb, adds[i][0],
+                                             adds[i][1], level, b.w, expand)
+                if c_count > 0:
+                    # BU_CHUNK_ROUNDS chunk rounds over the block's candidates
+                    c_cap2 = min(next_pow2(max(c_count, 2)), b.cap)
+                    off = torch.zeros(c_cap2, dtype=torch.int32, device=b.dev)
+                    cand, off, prog = _batched_rounds(
+                        b.dist, fb, b.plan[1][:c_cap2], off, c_count, level,
+                        b.g, None if tb_l is None else tb_l[i],
+                        BU_CHUNK_ROUNDS, expand,
+                        None if live is None else live.to(b.dev))
+                    progs.append((i, cand, off, prog))
+            done = _readback([p[3] for p in progs])   # ONE a block a fuse
+            for (i, cand, off, _), (c_count, rem8) in zip(progs, done):
+                if c_count > 0:
+                    # the stragglers' remaining chunks, all in one sweep
+                    b = blocks[i]
+                    c_cap2 = min(next_pow2(max(c_count, 2)), b.cap)
+                    _batched_exhaust(b.dist, fbits[b.dev], cand[:c_cap2],
+                                     off[:c_cap2], c_count, level, b.g,
+                                     None if tb_l is None else tb_l[i],
+                                     next_pow2(max(rem8, 2)), expand)
         level += 1
     # jobs still active at max_levels count as completed at the cap
     if act_h.any():
@@ -1053,5 +1067,7 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
     out = blocks[0].dist[:, :n] if one else _gather_dist(blocks, n, n)
     if return_device:
         return out, levels, completed
-    devprof.count_d2h("bfs.dist", out.numel() * out.element_size())
-    return out.cpu().numpy(), levels, completed
+    with devprof.seam("bfs_batched.readback", dev):
+        devprof.count_d2h("bfs.dist", out.numel() * out.element_size())
+        host = out.cpu().numpy()
+    return host, levels, completed

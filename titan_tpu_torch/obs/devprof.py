@@ -4,7 +4,7 @@ CUDA).
 
 The JAX module intercepts its jit cache and XLA's compile events. The
 port has neither, so it keeps the metric families and site names and
-measures through three seams:
+measures through four kinds of seam:
 
 * **Kernel time**: ``profiled(key, fn, *args)`` runs ``fn`` under the
   installed profilers. The three kernel wrappers
@@ -16,9 +16,23 @@ measures through three seams:
   (``elapsed_time``) when a ``ProfileWindow`` closes, when ``stats()`` or
   ``kernel_stats()`` is read, or, without blocking, for the finished
   ones once more than ``MAX_PENDING`` wait. On the CPU the host wall of
-  the call is the time. A seam called inside another (``seg_scan``
-  inside ``engine.superstep``) counts on its own kernel's children but
-  not again in the totals.
+  the call is the time. ``with seam(key, device):`` times a block the
+  same way, on ``device``'s current stream: the batched BFS's stages
+  (``bfs_batched.plan``, ``.sweep``, ``.readback``) and the engine's
+  (``engine.prepare``, and ``engine.gather`` / ``engine.combine``
+  inside each superstep) are such seams. A seam called inside another
+  (``seg_scan`` inside ``engine.combine`` inside ``engine.superstep``,
+  ``frontier_round`` inside ``bfs_batched.sweep``) counts on its own
+  kernel's children but not again in the totals.
+* **Host stages**: ``with stage(key):`` times work that runs on the
+  host by ``time.perf_counter()`` (the scheduler's worker loop:
+  ``serving.wait``, ``serving.dispatch``, ``serving.result``). A stage
+  records ``calls`` and ``exec_s`` under its key in ``kernel_stats()``
+  and nothing else: no metric family, no span, nothing in ``stats()``
+  (so ``ProfileWindow`` and the scheduler's ``device_cost`` stay device
+  time). A device seam inside a stage counts as top-level, exactly as
+  if the stage were absent, and a build during a stage is attributed
+  to the seam in flight or to the library, as elsewhere.
 * **Build accounting**: every nvcc (or g++) compile that
   ``titan_tpu_torch/build.py`` runs counts on ``device.compile.count`` /
   ``device.compile.ms``, under the seam in flight on the thread when
@@ -36,8 +50,16 @@ families through ``utils/metrics`` (children keyed by ``{kernel}`` /
 when the call's events are resolved.
 
 Profilers install process-wide; more than one may be installed, and a
-call is measured once and fanned out. With none installed each seam is
-one module-global load and a truth test. The profiler never touches the
+call is measured once and fanned out. With none installed each seam and
+stage is one module-global load and a truth test (``seam`` and
+``stage`` then return one shared no-op context): no clock read, no CUDA
+event, no allocation. While a ``torch.profiler`` session is recording
+(any thread's), every measured seam and stage also opens a
+``torch.profiler.record_function(key)`` range, so it lies in the Kineto
+trace on the device events' own clock; a session records another
+thread's ranges only when it profiles all threads
+(``_ExperimentalConfig(profile_all_threads=True)``). With no session
+recording no range object is made. The profiler never touches the
 computation, so results are bit-equal with profiling on or off.
 """
 
@@ -48,6 +70,7 @@ import time
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as _torch_profiler
 
 from titan_tpu_torch import build
 from titan_tpu_torch.utils.metrics import MetricManager
@@ -92,40 +115,100 @@ def _device_of(args) -> Optional[torch.device]:
     return None
 
 
-def _dispatch(key: str, fn, args, kwargs):
-    """Measure one call once and fan it out to every installed
-    profiler."""
-    profs = list(_PROFILERS)
-    prev = getattr(_TLS, "ctx", None)
-    top = prev is None
-    ctx = _TLS.ctx = {"key": key, "compiled": False}
-    dev = _device_of(args)
-    cuda = dev is not None and dev.type == "cuda"
-    if cuda:
-        stream = torch.cuda.current_stream(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-    t0 = time.perf_counter()
-    try:
-        out = fn(*args, **kwargs)
-    finally:
-        _TLS.ctx = prev
-        wall = time.perf_counter() - t0
-        compiled = ctx["compiled"]
+class _Off:
+    """The context every seam and stage returns while no profiler is
+    installed: one shared object that does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+def _range(key: str):
+    """A ``record_function`` range named ``key``, entered, while a
+    ``torch.profiler`` session is recording; None otherwise."""
+    if not _torch_profiler._is_profiler_enabled:
+        return None
+    rf = _torch_profiler.record_function(key)
+    rf.__enter__()
+    return rf
+
+
+class _Seam:
+    """One measured run of a device seam, fanned out to the profilers
+    installed when it started (see the module doc)."""
+
+    __slots__ = ("key", "device", "profs", "prev", "ctx", "rf", "stream",
+                 "start", "t0")
+
+    def __init__(self, key: str, device: Optional[torch.device]):
+        self.key = key
+        self.device = device
+
+    def __enter__(self) -> "_Seam":
+        self.profs = list(_PROFILERS)
+        self.prev = getattr(_TLS, "ctx", None)
+        self.ctx = _TLS.ctx = {"key": self.key, "compiled": False}
+        self.rf = _range(self.key)
+        self.stream = None
+        dev = self.device
+        if dev is not None and dev.type == "cuda":
+            self.stream = torch.cuda.current_stream(dev)
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record(self.stream)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _TLS.ctx = self.prev
+        wall = time.perf_counter() - self.t0
+        key, profs, top = self.key, self.profs, self.prev is None
         for prof in profs:
-            prof.on_call(key, compiled)
-        if cuda:
-            end.record(stream)
+            prof.on_call(key, self.ctx["compiled"])
+        if self.stream is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self.stream)
             with _PENDING_LOCK:
-                _PENDING.append((key, start, end, top, profs))
+                _PENDING.append((key, self.start, end, top, profs))
                 crowded = len(_PENDING) > MAX_PENDING
             if crowded:
                 _resolve(block=False)
         else:
             for prof in profs:
                 prof.on_exec(key, wall, top)
-    return out
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        return False
+
+
+class _Stage:
+    """One timed run of a host stage (see the module doc)."""
+
+    __slots__ = ("key", "profs", "rf", "t0")
+
+    def __init__(self, key: str):
+        self.key = key
+
+    def __enter__(self) -> "_Stage":
+        self.profs = list(_PROFILERS)
+        self.rf = _range(self.key)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        secs = time.perf_counter() - self.t0
+        for prof in self.profs:
+            prof.on_stage(self.key, secs)
+        if self.rf is not None:
+            self.rf.__exit__(None, None, None)
+        return False
 
 
 def _resolve(block: bool = True) -> None:
@@ -154,10 +237,31 @@ def _resolve(block: bool = True) -> None:
 
 def profiled(key: str, fn, *args, **kwargs):
     """Run ``fn(*args, **kwargs)`` under the installed profilers (see the
-    module doc); with none installed, just run it."""
+    module doc), on the device of its first tensor argument; with none
+    installed, just run it."""
     if not _PROFILERS:
         return fn(*args, **kwargs)
-    return _dispatch(key, fn, args, kwargs)
+    with _Seam(key, _device_of(args)):
+        return fn(*args, **kwargs)
+
+
+def seam(key: str, device: Optional[torch.device]):
+    """``with seam(key, device):`` measures the block as ``profiled``
+    measures a call: CUDA events on ``device``'s current stream on a
+    card, the host wall elsewhere (``device`` None or not CUDA). With no
+    profiler installed, the shared no-op context."""
+    if not _PROFILERS:
+        return _OFF
+    return _Seam(key, device)
+
+
+def stage(key: str):
+    """``with stage(key):`` times a block of host work by the host's
+    clock, into ``kernel_stats()`` only (see the module doc). With no
+    profiler installed, the shared no-op context."""
+    if not _PROFILERS:
+        return _OFF
+    return _Stage(key)
 
 
 def count_h2d(site: str, nbytes: int) -> None:
@@ -267,6 +371,14 @@ class DeviceCostProfiler:
         if rec is not None:
             rec.record("device", kernel=key, ms=round(seconds * 1e3, 3))
 
+    def on_stage(self, key: str, seconds: float) -> None:
+        """A host stage's run: its key's calls and seconds, nothing
+        more (module doc)."""
+        with self._lock:
+            k = self._kernel(key)
+            k["calls"] += 1
+            k["exec_s"] += seconds
+
     def on_build(self, key: str, seconds: float) -> None:
         m = self.metrics
         m.counter("device.compile.count", labels={"kernel": key}).inc()
@@ -302,7 +414,8 @@ class DeviceCostProfiler:
 
     def kernel_stats(self) -> dict:
         """Per-kernel accumulated stats (calls / compiles / cache hits /
-        compile + exec seconds), keyed by seam key."""
+        compile + exec seconds), keyed by seam key; a host stage's key
+        counts only its calls and seconds."""
         _resolve()
         with self._lock:
             return {k: dict(v) for k, v in sorted(self._kernels.items())}

@@ -40,10 +40,13 @@ or it holds a fixed snapshot; ``run_async`` submits to its
 device or the mesh as JAX's does.
 
 Each superstep of ``run_single`` runs under ``obs/devprof.profiled``
-(``engine.superstep``; ``run_sharded``'s under
-``engine.superstep_sharded``); the graph upload and the outputs'
-readback count on its ``engine.graph`` and ``engine.outputs`` transfer
-sites (a rank's block on ``engine.graph_sharded``).
+(``engine.superstep``, with its gather at ``src`` as ``engine.gather``
+and its combine as ``engine.combine`` inside; ``run_sharded``'s under
+``engine.superstep_sharded``), and ``run_single``'s work before the
+first superstep (the state's init, the device graph, the parameters'
+upload) under the seam ``engine.prepare``; the graph upload and the
+outputs' readback count on its ``engine.graph`` and ``engine.outputs``
+transfer sites (a rank's block on ``engine.graph_sharded``).
 """
 
 from __future__ import annotations
@@ -218,16 +221,18 @@ def run_single(program: DenseProgram, snap: GraphSnapshot,
     dev = resolve_device(device)
     params = dict(params or {})
     n = snap.n
-    if resume is not None:
-        state = {k: _to_device(v, dev) for k, v in resume["state"].items()}
-        it = int(resume["iteration"])
-    else:
-        state = {k: _to_device(v, dev)
-                 for k, v in program.init(n, params).items()}
-        it = 0
-    g = device_graph(snap, dev)
-    edata = _edge_data(program, g)
-    dparams = _device_params(params, dev)
+    with devprof.seam("engine.prepare", dev):
+        if resume is not None:
+            state = {k: _to_device(v, dev)
+                     for k, v in resume["state"].items()}
+            it = int(resume["iteration"])
+        else:
+            state = {k: _to_device(v, dev)
+                     for k, v in program.init(n, params).items()}
+            it = 0
+        g = device_graph(snap, dev)
+        edata = _edge_data(program, g)
+        dparams = _device_params(params, dev)
     max_iter = program.max_iterations
     every = int(checkpoint_every or 0) if checkpoint is not None else 0
     done = False
@@ -253,13 +258,18 @@ def _superstep(program: DenseProgram, state: dict, g: DeviceGraph,
                edata: dict, dparams: dict, it: int, n: int):
     """One superstep of ``run_single``: ``(new_state, done)``, ``done``
     as the program returns it (not read back here)."""
-    src_state = {k: v.index_select(0, g.src) for k, v in state.items()}
+    src_state = devprof.profiled("engine.gather", _gather, state, g.src)
     msg = program.message(src_state, edata, dparams)
-    agg = segment_combine(msg, g.dst, n, program.combine,
-                          last_idx=g.last_idx, seg_has=g.seg_has,
-                          flags=g.flags)
+    agg = devprof.profiled("engine.combine", segment_combine, msg, g.dst, n,
+                           program.combine, last_idx=g.last_idx,
+                           seg_has=g.seg_has, flags=g.flags)
     new_state = program.apply(state, agg, it, dparams)
     return new_state, program.done(state, new_state, agg, it, dparams)
+
+
+def _gather(state: dict, src: torch.Tensor) -> dict:
+    """Every state array at the edges' sources."""
+    return {k: v.index_select(0, src) for k, v in state.items()}
 
 
 def _row_buffer(k: int, n: int, dtype, dev) -> torch.Tensor:

@@ -16,6 +16,13 @@ admitted jobs leased onto ONE snapshot, it
   'dense' DensePrograms through olap/engine.run_single, 'callable' host
   delegations), honoring cancel-before-start.
 
+Stages (obs/devprof, the worker's tiling in olap/serving/scheduler's
+module doc): a BFS batch's source resolution, fuse records and
+placement until its ``run`` spans open are ``serving.dispatch``, and
+its K results and completions after the spans close are
+``serving.result``; a ``dense`` job (``run_single``) assembles its
+result under ``serving.result`` inside its ``run`` span.
+
 The kernels mutate their state tensors in place, so every checkpoint
 row is a host copy taken inside the callback, before the next level or
 round runs. Results are plain dicts of host arrays; the full distance
@@ -205,54 +212,57 @@ class Batcher:
         raising out of a level boundary fails the WHOLE batch (that is
         what a real worker death does), and each member then retries
         under its own policy."""
-        t_fuse0 = time.time()
-        fresh: list[Job] = []
-        fresh_src: list[int] = []
-        resumed: list[tuple[Job, int, object]] = []
-        for job in jobs:
-            try:
-                src = _dense_source(snap, job.spec.params)
-                # junk max_levels is a param error too — it must fail
-                # permanently HERE, not detonate retryably mid-group
-                int(job.spec.params.get("max_levels", 1000))
-            except (KeyError, ValueError, TypeError) as e:
-                # param errors are permanent: retrying cannot fix them
-                job.fail(f"{type(e).__name__}: {e}", permanent=True)
-                continue
-            ck = None
-            rec = job.recovery
-            # adoption: any retry attempt, OR a FIRST attempt carrying
-            # an idempotency key (fleet failover redispatch — the
-            # logical job already ran elsewhere and its checkpoints
-            # share the key, so attempt 1 here must resume, not
-            # restart; a keyed first run with no checkpoint is simply
-            # fresh, never counted restarted)
-            if rec is not None and (job.attempt > 1
-                                    or job.spec.idempotency_key):
-                ck = rec.latest(kind="bfs",
-                                epoch=_epoch_token(snap, overlay))
+        # the batch's source resolution and fuse records: the worker's
+        # serving.dispatch (olap/serving/scheduler's module doc)
+        with devprof.stage("serving.dispatch"):
+            t_fuse0 = time.time()
+            fresh: list[Job] = []
+            fresh_src: list[int] = []
+            resumed: list[tuple[Job, int, object]] = []
+            for job in jobs:
+                try:
+                    src = _dense_source(snap, job.spec.params)
+                    # junk max_levels is a param error too — it must fail
+                    # permanently HERE, not detonate retryably mid-group
+                    int(job.spec.params.get("max_levels", 1000))
+                except (KeyError, ValueError, TypeError) as e:
+                    # param errors are permanent: retrying cannot fix them
+                    job.fail(f"{type(e).__name__}: {e}", permanent=True)
+                    continue
+                ck = None
+                rec = job.recovery
+                # adoption: any retry attempt, OR a FIRST attempt carrying
+                # an idempotency key (fleet failover redispatch — the
+                # logical job already ran elsewhere and its checkpoints
+                # share the key, so attempt 1 here must resume, not
+                # restart; a keyed first run with no checkpoint is simply
+                # fresh, never counted restarted)
+                if rec is not None and (job.attempt > 1
+                                        or job.spec.idempotency_key):
+                    ck = rec.latest(kind="bfs",
+                                    epoch=_epoch_token(snap, overlay))
+                    if ck is not None:
+                        rec.resumed(ck.round)
+                    elif job.attempt > 1:
+                        rec.restarted()
                 if ck is not None:
-                    rec.resumed(ck.round)
-                elif job.attempt > 1:
-                    rec.restarted()
-            if ck is not None:
-                resumed.append((job, src, ck))
-            else:
-                fresh.append(job)
-                fresh_src.append(src)
-        # fuse decision record (obs): K, shared-plan reuse, and why a
-        # member ran solo — the amortization evidence per trace
-        t_fuse1 = time.time()
-        for job in fresh:
-            if job.trace is not None:
-                job.trace.event("fuse", t0=t_fuse0, t1=t_fuse1,
-                                k=len(fresh), shared_plan=len(fresh) > 1)
-        for job, _src, ck in resumed:
-            if job.trace is not None:
-                job.trace.event("fuse", t0=t_fuse0, t1=t_fuse1, k=1,
-                                shared_plan=False,
-                                solo="resumed from checkpoint "
-                                     f"round {ck.round}")
+                    resumed.append((job, src, ck))
+                else:
+                    fresh.append(job)
+                    fresh_src.append(src)
+            # fuse decision record (obs): K, shared-plan reuse, and why a
+            # member ran solo — the amortization evidence per trace
+            t_fuse1 = time.time()
+            for job in fresh:
+                if job.trace is not None:
+                    job.trace.event("fuse", t0=t_fuse0, t1=t_fuse1,
+                                    k=len(fresh), shared_plan=len(fresh) > 1)
+            for job, _src, ck in resumed:
+                if job.trace is not None:
+                    job.trace.event("fuse", t0=t_fuse0, t1=t_fuse1, k=1,
+                                    shared_plan=False,
+                                    solo="resumed from checkpoint "
+                                         f"round {ck.round}")
         if fresh:
             self._bfs_group(fresh, fresh_src, snap, None, 0,
                             overlay=overlay)
@@ -266,19 +276,22 @@ class Batcher:
         from titan_tpu_torch.models.bfs_hybrid import frontier_bfs_batched
 
         K = len(runnable)
-        for job in runnable:
-            job.batch_k = K
-        started = time.time()
-        dropped = [None] * K    # terminal state decided at a boundary
-        n = snap.n if hasattr(snap, "n") else snap["n"]
-        # mesh placement: overlay leases stay on one device (the overlay's
-        # device buffers belong to the unsharded layout); everything else
-        # runs over the mesh through the placed graph dict
-        target = snap
-        meshed = self.would_mesh("bfs", overlay)
-        if meshed:
-            from titan_tpu_torch.parallel.partition import place_batched_csr
-            target = place_batched_csr(snap, self.mesh)
+        with devprof.stage("serving.dispatch"):
+            for job in runnable:
+                job.batch_k = K
+            started = time.time()
+            dropped = [None] * K    # terminal state decided at a boundary
+            n = snap.n if hasattr(snap, "n") else snap["n"]
+            # mesh placement: overlay leases stay on one device (the
+            # overlay's device buffers belong to the unsharded layout);
+            # everything else runs over the mesh through the placed
+            # graph dict
+            target = snap
+            meshed = self.would_mesh("bfs", overlay)
+            if meshed:
+                from titan_tpu_torch.parallel.partition import \
+                    place_batched_csr
+                target = place_batched_csr(snap, self.mesh)
         # device-run spans (obs): one "run" per job covering the shared
         # level loop; per-level "round" children carry the job's OWN
         # frontier count — all host timestamps from the level callback
@@ -357,14 +370,15 @@ class Batcher:
         for i, job in enumerate(runnable):
             if job.trace is not None:
                 job.trace.end(runs[i], levels=int(levels[i]))
-        for i, job in enumerate(runnable):
-            if completed[i]:
-                job.complete(_bfs_result(snap, dist[i], levels[i], inf,
-                                         job.spec.params))
-            elif dropped[i] == "timeout":
-                job.time_out()
-            else:
-                job.mark_cancelled()
+        with devprof.stage("serving.result"):
+            for i, job in enumerate(runnable):
+                if completed[i]:
+                    job.complete(_bfs_result(snap, dist[i], levels[i], inf,
+                                             job.spec.params))
+                elif dropped[i] == "timeout":
+                    job.time_out()
+                else:
+                    job.mark_cancelled()
 
     # -- batched SSSP / WCC cohorts -----------------------------------------
 
@@ -741,8 +755,10 @@ class Batcher:
                     program, snap, params, device=self.device,
                     resume=resume, checkpoint=ckpt,
                     checkpoint_every=every)
-                job.complete({"iterations": res.iterations,
-                              **{k: np.asarray(v) for k, v in res.items()}})
+                with devprof.stage("serving.result"):
+                    job.complete({"iterations": res.iterations,
+                                  **{k: np.asarray(v)
+                                     for k, v in res.items()}})
             elif kind == "callable":
                 job.complete({"value": params["fn"]()})
             else:

@@ -83,6 +83,25 @@ in the batcher and recovery hooks; the terminal state stamps the root.
 ``GET /trace?job=<id>`` renders the tree; ``tracing=False`` (or
 TITAN_TPU_TRACING=0) removes the whole plane.
 
+The worker's time (obs/devprof host stages, with a profiler installed):
+every instant of the worker thread lies in one of four places, read
+from ``kernel_stats()`` by key. ``serving.wait``: blocked on the queue's
+condition with nothing runnable (both waits of the loop).
+``serving.dispatch``: the worker's own work outside the model call,
+entered more than once a batch: the autotune tick and the pop; the
+batch's start (queue histograms, attempt spans, controller stitching),
+the lease, the ledger reservation and the tenant holds; the batcher's
+source resolution, fuse records and placement until its ``run`` spans
+open; after the call, the tenant drops, attribution, unpin, the
+profile window's close and the recorder; then each job's terminal
+metrics or requeue. The batcher's ``run`` spans. ``serving.result``:
+the batcher's result assembly, once a batch (for a BFS batch the K
+rows' results and completions after the run spans close; for a
+``dense`` job its outputs and completion, inside its run span, which
+closes in ``Batcher.run_single``'s ``finally``). A host delegation
+(``callable``) runs its function outside all four. No span and no
+metric family comes of them.
+
 Threads: the worker launches the kernels on the device's current stream,
 the same stream the caller's own work uses, so nothing here creates a
 stream; ``start()`` loads the kernel libraries on the caller's thread
@@ -891,16 +910,20 @@ class JobScheduler:
             self._dump(job, reason="retrying")
 
     def _run(self) -> None:
+        # the worker's time is tiled by devprof host stages (module doc):
+        # serving.wait, serving.dispatch, the batcher's run spans and its
+        # serving.result
         while True:
             # autotune tick (olap/serving/autotune): evaluated on the
             # worker thread between batches — the same thread that owns
             # max_batch, so K moves race nothing. Nothing the
             # controller does may take the worker down.
             if self.controller is not None:
-                try:
-                    self.controller.maybe_tick()
-                except Exception:
-                    pass
+                with devprof.stage("serving.dispatch"):
+                    try:
+                        self.controller.maybe_tick()
+                    except Exception:
+                        pass
             with self._cv:
                 # bounded single wait, NOT a drain-the-heap loop: an
                 # idle scheduler must keep cycling through the
@@ -908,16 +931,19 @@ class JobScheduler:
                 # STOPS — the empty-queue state is a control signal,
                 # not a reason to sleep forever)
                 if not self._stop and not self._heap:
-                    self._cv.wait(0.1)
+                    with devprof.stage("serving.wait"):
+                        self._cv.wait(0.1)
                 if self._stop:
                     return
-                group = self._pop_group()
+                with devprof.stage("serving.dispatch"):
+                    group = self._pop_group()
                 if group:
                     self._running_batch = len(group)
                 else:
                     # heap holds only backoff-deferred entries: idle
                     # briefly instead of spinning on the pop
-                    self._cv.wait(0.05)
+                    with devprof.stage("serving.wait"):
+                        self._cv.wait(0.05)
             if not group:
                 continue
             try:
@@ -932,16 +958,17 @@ class JobScheduler:
             finally:
                 with self._cv:
                     self._running_batch = 0
-            for job in group:
-                if job.state is JobState.RETRYING:
-                    if job.trace is not None \
-                            and job.trace.attempt is not None:
-                        job.trace.end(job.trace.attempt,
-                                      state=JobState.RETRYING.value)
-                        job.trace.attempt = None
-                    self._requeue(job)
-                else:
-                    self._finalize_metrics(job)
+            with devprof.stage("serving.dispatch"):
+                for job in group:
+                    if job.state is JobState.RETRYING:
+                        if job.trace is not None \
+                                and job.trace.attempt is not None:
+                            job.trace.end(job.trace.attempt,
+                                          state=JobState.RETRYING.value)
+                            job.trace.attempt = None
+                        self._requeue(job)
+                    else:
+                        self._finalize_metrics(job)
 
     def _attribute(self, group: list[Job], wall: float,
                    nbytes: int) -> None:
@@ -990,12 +1017,110 @@ class JobScheduler:
 
     def _execute(self, group: list[Job]) -> None:
         head = group[0]
-        # cancel raced between pop and start: honor it before any work
+        # serving.dispatch, entered once for each stretch of the worker's
+        # own work around the batcher's call (module doc)
+        with devprof.stage("serving.dispatch"):
+            group = self._start_group(group)
+        if not group:
+            return
+        if head.spec.kind == "callable":
+            # host delegations: the function is the job's work, and no
+            # run span or stage covers it
+            t0 = time.time()
+            for job in group:
+                self.batcher.run_single(job, None)
+            self._attribute(group, time.time() - t0, 0)
+            if self.recorder is not None:
+                self.recorder.metric_delta()
+            return
+        spec = head.spec
+        with devprof.stage("serving.dispatch"):
+            edge_keys = tuple(spec.edge_keys or ())
+            if spec.kind == "dense" and not edge_keys:
+                # a DenseProgram that reads edge properties needs them
+                # extracted into the snapshot — derive from the program
+                program = spec.params.get("program")
+                if program is not None and hasattr(program, "edge_keys"):
+                    edge_keys = tuple(program.edge_keys())
+            try:
+                # dense window sweeps (pagerank / DenseProgram) have no
+                # overlay seam: the live pool folds the overlay into the
+                # base BEFORE leasing for these kinds (the documented
+                # compact-before-run fallback, models/frontier.py)
+                lease = self.pool.acquire(labels=spec.labels,
+                                          edge_keys=edge_keys,
+                                          directed=spec.directed,
+                                          compacted=spec.kind in
+                                          ("pagerank", "dense"))
+            except Exception as e:
+                for job in group:
+                    job.fail(f"snapshot: {type(e).__name__}: {e}")
+                return
+        with lease as snap:
+            with devprof.stage("serving.dispatch"):
+                overlay = lease.overlay
+                epoch_info = lease.epoch_info \
+                    or {"epoch": getattr(snap, "epoch", 0)}
+                for job in group:
+                    job.ran_epoch = epoch_info
+                ledger_key = id(snap)
+                # mesh-placed cohorts charge the PER-DEVICE share; the
+                # predicate is the batcher's (Batcher.would_mesh), so the
+                # accounting here and the placement there answer from one
+                # definition. A snapshot already resident under the other
+                # accounting keeps its first byte count (reserve() pins
+                # existing keys without re-pricing), as in the JAX package
+                if self.batcher.would_mesh(spec.kind, overlay):
+                    nbytes = meshed_snapshot_csr_bytes(snap, self.mesh.size)
+                else:
+                    nbytes = snapshot_csr_bytes(snap)
+                try:
+                    self.ledger.reserve(ledger_key, nbytes)
+                except AdmissionError as e:
+                    for job in group:
+                        job.fail(str(e))
+                    return
+                self._evictable.setdefault(ledger_key, snap)
+                # the batch shares one graph image: its ledger bytes are
+                # held against each member's tenant (per-K share) for the
+                # duration of the run — the live view max_hbm_bytes
+                # quotas check against — then released and converted
+                # into byte-seconds attribution
+                share = nbytes / len(group)
+                for job in group:
+                    self.tenants.hold_hbm(job.tenant, share)
+                t0 = time.time()
+                w = self.profiler.window() if self.profiler is not None \
+                    else None
+            try:
+                if len(group) > 1 or batch_key(spec) is not None:
+                    self.batcher.run_batch(group, snap,
+                                           overlay=overlay)
+                else:
+                    self.batcher.run_single(group[0], snap,
+                                            overlay=overlay)
+            finally:
+                with devprof.stage("serving.dispatch"):
+                    wall = time.time() - t0
+                    for job in group:
+                        self.tenants.drop_hbm(job.tenant, share)
+                    self._attribute(group, wall, nbytes)
+                    self.ledger.unpin(ledger_key)
+                    if w is not None:
+                        self._stitch_device_cost(group, w.close())
+                    if self.recorder is not None:
+                        self.recorder.metric_delta()
+
+    def _start_group(self, group: list[Job]) -> list[Job]:
+        """The group's jobs that start now (a cancel that raced between
+        pop and start is honored before any work), started: queue
+        histograms, attempt spans, and the enforcing controller's
+        applied decisions stitched into their traces."""
         group = [j for j in group
                  if not j.state.terminal
                  and not (j.cancel_requested and j.mark_cancelled())]
         if not group:
-            return
+            return group
         for job in group:
             first_start = job.started_at is None
             job.start()
@@ -1034,85 +1159,4 @@ class JobScheduler:
                 for job in group:
                     if job.trace is not None:
                         job.trace.event("controller", decisions=brief)
-        if head.spec.kind == "callable":
-            t0 = time.time()
-            for job in group:
-                self.batcher.run_single(job, None)
-            self._attribute(group, time.time() - t0, 0)
-            if self.recorder is not None:
-                self.recorder.metric_delta()
-            return
-        spec = head.spec
-        edge_keys = tuple(spec.edge_keys or ())
-        if spec.kind == "dense" and not edge_keys:
-            # a DenseProgram that reads edge properties needs them
-            # extracted into the snapshot — derive from the program
-            program = spec.params.get("program")
-            if program is not None and hasattr(program, "edge_keys"):
-                edge_keys = tuple(program.edge_keys())
-        try:
-            # dense window sweeps (pagerank / DenseProgram) have no
-            # overlay seam: the live pool folds the overlay into the
-            # base BEFORE leasing for these kinds (the documented
-            # compact-before-run fallback, models/frontier.py)
-            lease = self.pool.acquire(labels=spec.labels,
-                                      edge_keys=edge_keys,
-                                      directed=spec.directed,
-                                      compacted=spec.kind in
-                                      ("pagerank", "dense"))
-        except Exception as e:
-            for job in group:
-                job.fail(f"snapshot: {type(e).__name__}: {e}")
-            return
-        with lease as snap:
-            overlay = lease.overlay
-            epoch_info = lease.epoch_info \
-                or {"epoch": getattr(snap, "epoch", 0)}
-            for job in group:
-                job.ran_epoch = epoch_info
-            ledger_key = id(snap)
-            # mesh-placed cohorts charge the PER-DEVICE share; the
-            # predicate is the batcher's (Batcher.would_mesh), so the
-            # accounting here and the placement there answer from one
-            # definition. A snapshot already resident under the other
-            # accounting keeps its first byte count (reserve() pins
-            # existing keys without re-pricing), as in the JAX package
-            if self.batcher.would_mesh(spec.kind, overlay):
-                nbytes = meshed_snapshot_csr_bytes(snap, self.mesh.size)
-            else:
-                nbytes = snapshot_csr_bytes(snap)
-            try:
-                self.ledger.reserve(ledger_key, nbytes)
-            except AdmissionError as e:
-                for job in group:
-                    job.fail(str(e))
-                return
-            self._evictable.setdefault(ledger_key, snap)
-            # the batch shares one graph image: its ledger bytes are
-            # held against each member's tenant (per-K share) for the
-            # duration of the run — the live view max_hbm_bytes quotas
-            # check against — then released and converted into
-            # byte-seconds attribution
-            share = nbytes / len(group)
-            for job in group:
-                self.tenants.hold_hbm(job.tenant, share)
-            t0 = time.time()
-            w = self.profiler.window() if self.profiler is not None \
-                else None
-            try:
-                if len(group) > 1 or batch_key(spec) is not None:
-                    self.batcher.run_batch(group, snap,
-                                           overlay=overlay)
-                else:
-                    self.batcher.run_single(group[0], snap,
-                                            overlay=overlay)
-            finally:
-                wall = time.time() - t0
-                for job in group:
-                    self.tenants.drop_hbm(job.tenant, share)
-                self._attribute(group, wall, nbytes)
-                self.ledger.unpin(ledger_key)
-                if w is not None:
-                    self._stitch_device_cost(group, w.close())
-                if self.recorder is not None:
-                    self.recorder.metric_delta()
+        return group

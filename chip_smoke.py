@@ -127,7 +127,12 @@ Phases, each of which raises on failure:
    the batched BFS on the card
    equals the CPU port under a live overlay with adds and removals, with
    level masks, in a checkpoint and a resume from it, and with jobs
-   dropped through ``on_level``;
+   dropped through ``on_level``; 7b (after phase 7, on its graph): the
+   cohort's ``[K, n]`` readback into ``ops/hostbuf``'s page-locked
+   buffers, four batches through a pool of the phase's own (pinned,
+   pinned, pageable with both buffers held, pinned again), every row
+   bit-equal to the pageable readback, the first batch's row held across
+   the other three unchanged, each readback's ms and rate printed;
 8. the frontier models at scale 22, on a chunked-CSR dict from phase 5's
    host build: ``pagerank_dense`` as bench.py's LiveJournal stage runs it
    (2 warm-up iterations, then seconds an iteration over 10) and its
@@ -2955,6 +2960,75 @@ def phase_batched(F, P, G, g, hg, card) -> tuple[list, dict, list, dict]:
         "dstT_q8", "fbits_rows", "fbits_words")}}
              for name, r in recs.items()],
             {"bfs_batched": launches, "hops": h_launches}, sweep, x_rec)
+
+
+def phase_pinned_readback(P, HB, g, hg, card) -> list[dict]:
+    """Phase 7b on phase 6's s26 graph: the served cohort's ``[K, n]``
+    readback into ``ops/hostbuf``'s page-locked buffers, through a pool
+    of the phase's own. Four K = 16 batches of phase 7's sources in three
+    orders: the first two land in the pool's two buffers; with both held
+    the third takes the pageable path; once the second's array is
+    dropped the fourth takes its buffer again. Every row is bit-equal,
+    by source, to the pageable readback of a device run, and the first
+    batch's row, held across the three batches after it, is unchanged.
+    Each readback's ms by the ``bfs_batched.readback`` seam and its rate
+    are printed; the first includes locking its buffer. Returns the
+    batches' records."""
+    from titan_tpu_torch.obs import devprof
+
+    n = g["n"]
+    srcs = sample_sources(hg["deg"], BATCH_K)
+    half = BATCH_K // 2
+    orders = [srcs, srcs[::-1], srcs[half:] + srcs[:half], srcs]
+    dev, _, _ = P.frontier_bfs_batched(g, srcs, return_device=True)
+    ref = {s: dev[k].cpu().numpy() for k, s in enumerate(srcs)}
+    del dev
+    nbytes = BATCH_K * n * 4
+    saved, HB.POOL = HB.POOL, HB.HostBufferPool()
+    recs = []
+    try:
+        with devprof.DeviceCostProfiler() as prof:
+            held = second = None
+            for b, order in enumerate(orders):
+                k0 = prof.kernel_stats()
+                dist, _, completed = P.frontier_bfs_batched(g, order)
+                k1 = prof.kernel_stats()
+
+                def grew(key, field):
+                    return k1.get(key, {}).get(field, 0) \
+                        - k0.get(key, {}).get(field, 0)
+                secs = grew("bfs_batched.readback", "exec_s")
+                recs.append({"batch": b, "pinned": grew(
+                    "bfs_batched.readback.pinned", "calls"),
+                    "readback_ms": round(secs * 1e3, 3),
+                    "GB_per_s": round(nbytes / secs / 1e9, 3),
+                    "buffers": HB.POOL.buffers()})
+                check(bool(completed.all()), f"phase 7b: a job of batch {b} "
+                      f"did not complete")
+                for k, s in enumerate(order):
+                    check(np.array_equal(dist[k], ref[s]), f"phase 7b: "
+                          f"batch {b}'s row {k} (source {s}) differs from "
+                          f"the pageable readback")
+                if b == 0:
+                    held = dist[0]
+                elif b == 1:
+                    second = dist
+                elif b == 2:
+                    second = None
+                del dist
+            check([r["pinned"] for r in recs] == [1, 1, 0, 1],
+                  f"phase 7b: pinned readbacks {recs}")
+            check(np.array_equal(held, ref[srcs[0]]), "phase 7b: the first "
+                  "batch's row changed while three more batches ran")
+            del held, second
+    finally:
+        HB.POOL = saved
+    say(f"phase 7b: K={BATCH_K} cohort readback at s{SCALE} on {card} "
+        f"({nbytes} B a batch): every row bit-equal to the pageable "
+        f"readback; a held row unchanged across three batches; "
+        f"pinned, pinned, pageable (both buffers held), pinned again: "
+        + json.dumps(recs))
+    return recs
 
 
 def phase_batched_small(F, P, G, SN, OV, card) -> None:
@@ -7242,6 +7316,7 @@ def main() -> int:
     from titan_tpu_torch.olap.live import overlay as OV
     from titan_tpu_torch.ops import epoch_merge as EM
     from titan_tpu_torch.ops import frontier as F
+    from titan_tpu_torch.ops import hostbuf as HB
     from titan_tpu_torch.ops import probes as PRB
     from titan_tpu_torch.ops import seg_scan as S
     from titan_tpu_torch.ops import window_sum as WS
@@ -7362,6 +7437,7 @@ def main() -> int:
     sharded_rounds = phase_sharded_bfs(F, hg, per_source, teps6, card)
     del per_source
     replays, paths, sweep, x_rec = phase_batched(F, P, G, g, hg, card)
+    phase_pinned_readback(P, HB, g, hg, card)
     peel26 = phase_frontier_s26(F, P, FR, g, hg, card)
     del g
     torch.cuda.empty_cache()

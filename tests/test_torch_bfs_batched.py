@@ -458,3 +458,36 @@ def test_device_checks(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         P.frontier_bfs_batched(g, [0])
+
+
+def test_returned_arrays_across_calls_through_the_readback_pool(monkeypatch):
+    """Three batches through one readback pool (its page-locking replaced
+    by plain host memory, so the CPU takes the card's path): each row
+    bit-equal to the single-source run from its source, the first two
+    batches in the pool's two buffers, the third in the second's (that
+    array dropped), and a row held from the first unchanged."""
+    from titan_tpu_torch.ops import hostbuf
+
+    pool = hostbuf.HostBufferPool(
+        alloc=lambda nbytes: torch.empty(nbytes, dtype=torch.uint8))
+    monkeypatch.setattr(hostbuf, "POOL", pool)
+    snap = GRAPHS["rmat11"]()
+    srcs = _sources(snap, 8, 5)
+    single = {s: P.frontier_bfs_hybrid(snap, s, device="cpu")[0]
+              for s in set(srcs)}
+    orders = [srcs, srcs[::-1], srcs[4:] + srcs[:4]]
+    held = None
+    for b, order in enumerate(orders):
+        dist, levels, completed = P.frontier_bfs_batched(snap, order,
+                                                         device="cpu")
+        assert completed.all() and dist.shape == (8, snap.n)
+        for k, s in enumerate(order):
+            assert np.array_equal(dist[k], single[s]), (b, k, s)
+        owner = [i for i, buf in enumerate(pool._bufs)
+                 if np.shares_memory(dist, buf.mem.numpy())]
+        assert owner == [min(b, 1)], (b, owner)
+        if b == 0:
+            held = dist[0]
+        del dist
+    assert len(pool.buffers()) == hostbuf.SLOTS
+    assert np.array_equal(held, single[srcs[0]])

@@ -40,6 +40,7 @@ import torch
 
 from titan_tpu_torch.device import INF, cache_key, next_pow2, resolve_device
 from titan_tpu_torch.obs import devprof
+from titan_tpu_torch.ops import hostbuf
 from titan_tpu_torch.ops.compaction import (CLAIM_SENTINEL, claim_dedup,
                                             claim_reset, compact_ids,
                                             scatter_compact)
@@ -899,10 +900,15 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
     rounds, the progress readback and the stragglers' sweep is
     ``bfs_batched.sweep`` (``frontier_round`` and ``batched_exhaust``
     inside it); the final ``[K, n]`` copy to the host is
-    ``bfs_batched.readback`` (none with ``return_device``).
+    ``bfs_batched.readback`` (none with ``return_device``). On a card
+    that copy lands in a page-locked buffer of ``ops/hostbuf``'s pool
+    where one is free (the host stage ``bfs_batched.readback.pinned``
+    counts those), else in a fresh pageable array.
 
     Returns ``(dist, levels, completed)``: dist [K, n] int32 (a device
-    tensor when ``return_device``, else numpy; INF = unreachable, partial
+    tensor when ``return_device``, else numpy, whose rows a caller may
+    keep: its buffer is not reused while any view of it lives; INF =
+    unreachable, partial
     for jobs not completed), levels np int32 [K] (the level at which each
     job's frontier emptied or it was dropped), completed np bool [K]."""
     dev = resolve_device(device)
@@ -1069,5 +1075,5 @@ def frontier_bfs_batched(snap_or_graph, sources, max_levels: int = 1000,
         return out, levels, completed
     with devprof.seam("bfs_batched.readback", dev):
         devprof.count_d2h("bfs.dist", out.numel() * out.element_size())
-        host = out.cpu().numpy()
+        host = hostbuf.POOL.read(out, "bfs_batched.readback.pinned")
     return host, levels, completed
